@@ -1,31 +1,36 @@
 #!/usr/bin/env python3
 """Where the serving path's time goes on one CUDA card (torch.profiler).
 
-    python3 scripts/profile_serve_torch.py
+    python3 scripts/profile_serve_torch.py [--arch zamba2-1.2b]
 
-Builds the port's engine on full-width stablelm-1.6b (random bf16 weights,
-one group ``accel:chunk=8:async=2`` on cuda:0, prompts of 512 tokens, 16
-decode tokens), serves 8 requests once to warm up, then serves 16 requests
-(2 chunks) twice: once bare, for the wall time, and once under
-``torch.profiler`` with CPU and CUDA activities. Prints, as JSON lines:
+Builds the port's engine on a full-width model (``--arch``, default
+stablelm-1.6b; random bf16 weights, one group ``accel:chunk=8:async=2`` on
+cuda:0, prompts of 512 tokens, 16 decode tokens), serves 8 requests once to
+warm up, then serves 16 requests (2 chunks) twice: once bare, for the wall
+time, and once under ``torch.profiler`` with CPU and CUDA activities.
+Prints, as JSON lines:
 
 - the bare and the profiled wall time of the 16 requests;
 - device busy time (the union of all GPU kernel and copy intervals) and
   the idle share of the profiled window;
 - GPU time per kernel name, the largest first;
-- the number of kernel launches and the host time spent launching them.
+- the number of kernel launches and the host time spent launching them;
+- the model's own split of one chunk (8 prompts): the wall time of its
+  prefill and of its 15 decode steps, each ended by a synchronise.
 
 The profiler adds host time per operator, so the profiled idle share is an
 upper bound of the bare run's. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,6 +49,9 @@ def _union_us(intervals):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve_torch: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
@@ -54,7 +62,7 @@ def main():
     from repro_torch.serve.engine import GroupDef, HeteroServeEngine
 
     dev = torch.device("cuda", 0)
-    cfg = get_config("stablelm-1.6b")
+    cfg = get_config(args.arch)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
     eng = HeteroServeEngine(
@@ -91,7 +99,7 @@ def main():
                 and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                "cudaLaunchKernelExC", "cuLaunchKernelEx")]
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
+        "arch": cfg.arch_id, "card": torch.cuda.get_device_name(0),
         "requests": bare.requests, "chunks": bare.overheads["accel"]
         ["n_chunks"], "bare_wall_s": bare_s,
         "bare_tok_per_s": bare.new_tokens / bare_s,
@@ -109,6 +117,25 @@ def main():
     print(json.dumps({"gpu_time_by_kernel": [
         {"name": name[:90], "calls": n, "gpu_s": us / 1e6}
         for name, (n, us) in top]}))
+
+    tokens = torch.from_numpy(
+        np.stack([eng._prompt(i) for i in range(8)])).to(dev)
+    with torch.no_grad():
+        for _ in range(2):               # the second run's times are kept
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(cfg, params, tokens,
+                                      max_len=eng.max_len)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(15):
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                logits, cache = M.decode_step(cfg, params, cache, tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    print(json.dumps({"one_chunk": {"prefill_s": t1 - t0,
+                                    "decode_15_steps_s": t2 - t1,
+                                    "decode_step_s": (t2 - t1) / 15}}))
 
 
 if __name__ == "__main__":

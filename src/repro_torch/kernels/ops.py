@@ -3,10 +3,13 @@ package's ``repro.kernels.ops``). The kernels read the model layout through
 strides, so unlike the JAX wrappers these transpose nothing."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,3 +30,18 @@ def decode_attention_bshd(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"heads {q.shape[2]}/{k_cache.shape[2]} != "
                          f"{n_heads}/{n_kv_heads}")
     return flash_decode(q, k_cache, v_cache, kv_len)
+
+
+def ssd_bshn(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             init_state: Optional[torch.Tensor] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (b, s, nh, p); dt (b, s, nh); A (nh,); B/C
+    (b, s, g, n); init_state (b, nh, p, n) or None -> (y (b, s, nh, p),
+    final state (b, nh, p, n)). Unlike the JAX wrapper, B/C are not
+    repeated to every head and A is not tiled: the kernel reads group
+    ``h // (nh / g)`` for head ``h``."""
+    if x.shape[2] % B.shape[2]:
+        raise ValueError(f"{x.shape[2]} heads are not a multiple of "
+                         f"{B.shape[2]} groups")
+    return ssd_scan(x, dt, A, B, C, chunk, init_state)

@@ -1,5 +1,6 @@
 """Plain oracles of the JAX package's kernel layouts (counterparts of
-``repro.kernels.ref``): q (B·H, Sq, D), k/v (B·KVH, Skv, D)."""
+``repro.kernels.ref``): q (B·H, Sq, D), k/v (B·KVH, Skv, D); for the SSD
+scan x (B·H, S, P), B/C (B·H, S, N)."""
 from __future__ import annotations
 
 import math
@@ -46,3 +47,19 @@ def flash_decode_ref(q, k, v, kv_len, *, n_heads=None, n_kv_heads=None):
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     o = torch.einsum("bhk,bhkd->bhd", p, vh.float())
     return o.reshape(BH, d).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """Sequential-recurrence oracle. x: (BH, S, P); dt: (BH, S); A: (BH,);
+    B, C: (BH, S, N). Returns (BH, S, P)."""
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    state = torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t] * A)                          # (BH,)
+        state = state * da[:, None, None] + dtf[:, t, None, None] \
+            * Bf[:, t, :, None] * xf[:, t, None, :]
+        ys.append(torch.einsum("bn,bnp->bp", Cf[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype)

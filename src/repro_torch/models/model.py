@@ -1,5 +1,5 @@
 """Unified model API over the architecture families (torch counterpart of
-``repro.models.model``), for the attention families of this port:
+``repro.models.model``), for the families this port runs:
 
     defs   = param_defs(cfg)                       # ParamDef tree
     params = init_params(cfg, generator, device)
@@ -14,23 +14,25 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.models import hybrid as hyb
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_from_defs
 
-#: the families this port runs; ``moe``, ``ssm`` and ``hybrid`` are queued
+#: the attention families, served by ``transformer``; ``hybrid`` (zamba2)
+#: is served by ``hybrid``; ``moe`` and ``ssm`` are queued
 ATTN_FAMILIES = ("dense", "vlm", "audio")
 
 _NOT_PORTED = {
     "moe": "MoE FFN (ROADMAP.md, queue A item 8)",
-    "hybrid": "Mamba-2 / zamba2 hybrid and the ssd_scan kernel "
-              "(ROADMAP.md, queue A item 9 and queue B item 3)",
     "ssm": "xLSTM (ROADMAP.md, queue A item 10)",
 }
 
 
-def _check_family(cfg: LMConfig) -> None:
+def _module(cfg: LMConfig):
     if cfg.family in ATTN_FAMILIES:
-        return
+        return tfm
+    if cfg.family == "hybrid":
+        return hyb
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} is not ported yet: "
@@ -39,7 +41,8 @@ def _check_family(cfg: LMConfig) -> None:
 
 
 def param_defs(cfg: LMConfig) -> Dict:
-    _check_family(cfg)
+    if _module(cfg) is hyb:
+        return hyb.hybrid_defs(cfg)
     return tfm.transformer_defs(cfg)
 
 
@@ -51,15 +54,12 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device) -> Dict:
 
 
 def prefill(cfg: LMConfig, params, tokens, prefix_emb=None, max_len=None):
-    _check_family(cfg)
-    return tfm.prefill(cfg, params, tokens, prefix_emb, max_len)
+    return _module(cfg).prefill(cfg, params, tokens, prefix_emb, max_len)
 
 
 def decode_step(cfg: LMConfig, params, cache, tokens):
-    _check_family(cfg)
-    return tfm.decode_step(cfg, params, cache, tokens)
+    return _module(cfg).decode_step(cfg, params, cache, tokens)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
-    _check_family(cfg)
-    return tfm.init_cache(cfg, batch, max_len, device)
+    return _module(cfg).init_cache(cfg, batch, max_len, device)

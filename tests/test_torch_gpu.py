@@ -6,13 +6,16 @@ device and skips without one. The module imports torch and the port only
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-bf16 inputs; tolerance 2e-2, tests/test_kernels.py's bf16 one.
+bf16 inputs; tolerance 2e-2, tests/test_kernels.py's bf16 one (for the
+SSD scan relative to the largest output, see its test).
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import ssd_scan as SSD
 
 
 @pytest.mark.gpu
@@ -49,3 +52,46 @@ def test_cuda_kernels_match_plain():
             poisoned_v[row, n:] = float("nan")
         again = FD.flash_decode(q[:, :1], poisoned_k, poisoned_v, kv_len)
         torch.testing.assert_close(again, out, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_matches_plain():
+    """Both instantiated (P, N) pairs; ragged lengths (13 and 37 at chunk
+    16, 1000 at chunk 128), B/C groups shared by heads, a seeded state.
+    x, B and C are column slices of one conv output, as the model passes
+    them, and the rows past s hold NaN: the kernel never reads them.
+    Tolerance: max |diff| <= 2e-2 of max |y| and of max |state|; the plain
+    version rounds three intermediates to bf16 where the kernel keeps
+    fp32 (repro/models/ssm.py:111-134)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    for b, s, nh, P, g, N, chunk, with_init in [
+            (2, 13, 8, 16, 1, 8, 16, False), (2, 37, 8, 16, 2, 8, 16, True),
+            (2, 1000, 4, 64, 1, 64, 128, True),
+            (1, 256, 8, 64, 8, 64, 128, False)]:
+        pad = 7
+        conv = (rnd(b, s + pad, nh * P + 2 * g * N) * 0.5).to(torch.bfloat16)
+        conv[:, s:] = float("nan")
+        x = conv[:, :s, :nh * P].unflatten(-1, (nh, P))
+        B = conv[:, :s, nh * P:nh * P + g * N].unflatten(-1, (g, N))
+        C = conv[:, :s, nh * P + g * N:].unflatten(-1, (g, N))
+        dt_full = F.softplus(rnd(b, s + pad, nh))
+        dt_full[:, s:] = float("nan")
+        dt = dt_full[:, :s]
+        A = -torch.exp(rnd(nh) * 0.3)
+        init = rnd(b, nh, P, N) if with_init else None
+        y, state = SSD.ssd_scan(x, dt, A, B, C, chunk, init)
+        torch.cuda.synchronize()
+        ey, estate = SSD.ssd_scan_plain(x, dt, A, B, C, chunk, init)
+        assert y.shape == ey.shape and state.shape == estate.shape
+        assert bool(torch.isfinite(y).all()) and bool(
+            torch.isfinite(state).all())
+        for got, exp in ((y.float(), ey.float()), (state, estate)):
+            err = (got - exp).abs().max().item()
+            assert err <= 2e-2 * exp.abs().max().item(), (b, s, g, err)

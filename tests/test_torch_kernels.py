@@ -23,6 +23,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as SSD
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -173,8 +174,10 @@ def test_flash_decode_plain_needs_kv_len_at_least_one():
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_never_count_a_launch():
-    fa0, fd0 = FA.launches, FD.launches
+    fa0, fd0, ssd0 = FA.launches, FD.launches, SSD.launches
     q = torch.zeros(1, 8, 2, 16)
     FA.flash_attention(q, q, q)
     FD.flash_decode(q[:, :1], q, q, torch.tensor([8], dtype=torch.int32))
-    assert (FA.launches, FD.launches) == (fa0, fd0)
+    SSD.ssd_scan(q, q[..., 0], -torch.ones(2), q[:, :, :1, :8],
+                 q[:, :, :1, :8], 8)
+    assert (FA.launches, FD.launches, SSD.launches) == (fa0, fd0, ssd0)

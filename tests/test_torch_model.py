@@ -174,12 +174,48 @@ def test_bridge_carries_bf16_bits_without_ml_dtypes():
                                   np.asarray(x.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m",
-                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-1b-a400m"])
 def test_unported_families_name_their_roadmap_item(arch):
     cfg = get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.param_defs(cfg)
+
+
+@pytest.mark.parametrize("n_layers", [4, 5])
+def test_zamba2_params_follow_the_jax_param_defs(n_layers):
+    """The hybrid tree: Mamba-2 blocks stacked twice (groups, then blocks
+    in a group), the shared attention block once, and with n_layers 5 a
+    tail stacked once; same keys, shapes and dtypes as the JAX package."""
+    cfg = get_reduced_config("zamba2-1.2b").replace(n_layers=n_layers)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    abstract = JM.abstract_params(jax_reduced("zamba2-1.2b").replace(
+        n_layers=n_layers))
+    flat_t, flat_j = dict(_flatten(params)), dict(_flatten(abstract))
+    assert flat_t.keys() == flat_j.keys()
+    for key, t in flat_t.items():
+        assert tuple(t.shape) == tuple(flat_j[key].shape), key
+        assert str(t.dtype).split(".")[-1] == str(flat_j[key].dtype), key
+    assert params["groups"]["in_proj"].shape[:2] == (2, 2)
+    assert ("tail" in params) == (n_layers == 5)
+
+
+@pytest.mark.parametrize("n_layers", [4, 5])
+def test_bridge_carries_the_zamba2_tree(n_layers):
+    """params_from_jax walks the doubly stacked ``groups`` tree and the
+    ``tail``: every leaf arrives with JAX's values, bf16 bits included."""
+    cfg_j = jax_reduced("zamba2-1.2b").replace(n_layers=n_layers)
+    cfg_t = get_reduced_config("zamba2-1.2b").replace(n_layers=n_layers)
+    jparams = jax.tree.map(np.asarray, JM.init_params(
+        cfg_j, jax.random.PRNGKey(1)))
+    tparams = params_from_jax(cfg_t, jparams, "cpu")
+    flat_j = dict(_flatten(jparams))
+    for key, t in _flatten(tparams):
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      flat_j[key].astype(np.float32))
+    bad = dict(jparams, groups=dict(jparams["groups"]))
+    del bad["groups"]["conv_b"]
+    with pytest.raises(ValueError, match="groups"):
+        params_from_jax(cfg_t, bad, "cpu")
 
 
 # ---------------------------------------------------------------------------

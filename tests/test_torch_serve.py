@@ -4,7 +4,8 @@ contract, and the launcher's device rules.
 
 Weights come from the JAX package through ``repro_torch.bridge``; the
 config is reduced stablelm-1.6b in fp32 with 2 layers
-(tests/test_integration.py's ``tiny_cfg``).
+(tests/test_integration.py's ``tiny_cfg``), and for the hybrid path
+reduced zamba2-1.2b in fp32.
 """
 import json
 
@@ -52,7 +53,19 @@ def test_serve_tokens_match_the_jax_engine(tiny_cfgs):
     Greedy tokens are compared exactly; the test first checks, along the
     port's greedy path, that no top-two logits lie within 1e-4 of each
     other, where fp32 summation order could flip an argmax."""
-    cfg_j, cfg_t = tiny_cfgs
+    _serve_tokens_match_the_jax_engine(*tiny_cfgs)
+
+
+def test_serve_tokens_match_the_jax_engine_on_zamba2():
+    """The same on reduced zamba2 in fp32 (4 layers: 2 groups of 2
+    Mamba-2 blocks and the shared attention block), prompts of 16 tokens
+    (one whole SSD chunk)."""
+    _serve_tokens_match_the_jax_engine(
+        jax_reduced("zamba2-1.2b").replace(dtype="float32"),
+        get_reduced_config("zamba2-1.2b").replace(dtype="float32"))
+
+
+def _serve_tokens_match_the_jax_engine(cfg_j, cfg_t):
     n, prompt_len, decode_tokens = 8, 16, 4
     jeng = JaxServeEngine(
         cfg_j, [JaxGroupDef("accel", JaxDeviceKind.ACCEL, fixed_chunk=4)],
@@ -231,3 +244,13 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     assert out["requests"] == 6 and out["new_tokens"] == 18
     assert sum(out["per_group"].values()) == 6
     assert "O_td" in out["accel_overheads"]
+
+
+def test_launcher_serves_zamba2_on_the_cpu(capsys):
+    serve_cli.main(["--arch", "zamba2-1.2b", "--reduced", "--device", "cpu",
+                    "--requests", "4", "--prompt-len", "13",
+                    "--decode-tokens", "3", "--dtype", "float32",
+                    "--groups", "accel:chunk=2:async=2,cpu0"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["requests"] == 4 and out["new_tokens"] == 12
+    assert sum(out["per_group"].values()) == 4

@@ -8,13 +8,19 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of every CUDA kernel from ``csrc/`` (one nvcc per
    source, all started together), with ptxas's registers, shared memory
-   and spills per kernel;
+   and spills per kernel, and the resident blocks per SM of every
+   instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. each kernel against its plain PyTorch version on the card, in bf16 at
-   the serving path's shapes: max abs error and tolerance, time per call
-   from CUDA events, the bound (the larger of bytes over 3.35 TB/s and
-   FLOPs over 989 TFLOP/s), the plain version's time and, as a yardstick
-   the port never calls, ``F.scaled_dot_product_attention``'s time (no
-   PyTorch call computes the SSD scan);
+   the serving path's shapes: max abs error and tolerance, two times per
+   call (``ms``: the device alone, many calls captured in one CUDA graph
+   and replayed between CUDA events; ``back_to_back_ms``: the same calls
+   issued from Python, so the wrapper's host cost is in it), the bound
+   (the larger of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s), the
+   plain version's time and, as a yardstick the port never calls,
+   ``F.scaled_dot_product_attention``'s two times (no PyTorch call
+   computes the SSD scan); then every other instantiation (K1 at head
+   dims 16, 32 and 128, K3 at (P, N) = (16, 8)) against its plain
+   version on small ragged inputs;
 3. the model at full width on a small input: stablelm-1.6b cut to 2 layers,
    prefill + 4 greedy decode steps through the kernels, against the same
    run with the kernels' plain versions in their place (bf16, on the card);
@@ -48,6 +54,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -59,9 +66,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 TOL = 2e-2                         # tests/test_kernels.py's bf16 tolerance
-#: the SSD scan's tolerance, relative to max |y| and max |state|: the plain
-#: version rounds three intermediates to bf16 (repro/models/ssm.py:111-134)
-#: where the kernel keeps fp32
+#: the SSD scan's tolerance, relative to max |y| and max |state|: kernel
+#: and plain version round the same three intermediates to bf16
+#: (repro/models/ssm.py:111-134) but sum in other orders, so a weight can
+#: round to the neighbouring bf16 value
 SSD_TOL = 2e-2
 
 
@@ -82,6 +90,38 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    and replayed ``replays`` times between CUDA events, so no host work
+    sits between the kernels; warmed up first on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def times(fn, iters: int):
+    """(device-only ms, back-to-back ms) of one call."""
+    return graph_ms(fn, iters), cuda_ms(fn, iters)
 
 
 def bound(nbytes: float, flops: float):
@@ -109,10 +149,44 @@ def phase_card():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(_build.KERNELS)}, in parallel)")
     for name, text in _build.build_log.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = _kernel_name(found.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {entry}: {line.strip()}")
     return smi
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_attention_kernel<64>`` from the mangled name ptxas prints."""
+    found = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?", mangled)
+    if not found:
+        return mangled
+    args = re.findall(r"Li(\d+)E", found.group(2) or "")
+    return found.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def phase_occupancy(dev):
+    """Resident blocks per SM of every instantiation of K1 and K3."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels._checks import HEAD_DIMS
+    occ = {}
+    for d in HEAD_DIMS:
+        blocks, smem = FA.occupancy(d, dev)
+        occ[f"flash_attention D={d}"] = blocks
+        log(f"flash_attention occupancy D={d}: {blocks} resident blocks per "
+            f"SM, {smem} bytes of dynamic shared memory per block")
+    for P, N in SSD.SHAPES:
+        blocks, smem = SSD.occupancy(P, N, dev)
+        occ[f"ssd_scan P={P} N={N}"] = blocks
+        log(f"ssd_scan occupancy P={P} N={N}: {blocks} resident blocks per "
+            f"SM, {smem} bytes of dynamic shared memory per block")
+    if min(occ.values()) < 1:
+        raise AssertionError(f"an instantiation cannot launch: {occ}")
+    return occ
 
 
 def phase_kernels(dev):
@@ -140,23 +214,25 @@ def phase_kernels(dev):
         if not torch.allclose(out.float(), exp.float(), rtol=TOL, atol=TOL):
             raise AssertionError(f"flash_attention {name}: max abs err {err}")
         fa_err = max(fa_err, err)
-        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True), 50)
+        ms, b2b_ms = times(
+            lambda: FA.flash_attention(q, k, v, causal=True), 50)
         plain_ms = cuda_ms(
             lambda: FA.flash_attention_plain(q, k, v, causal=True), 5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms, lib_b2b_ms = times(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=h != kvh), 50)
         nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d)
         flops = 4 * b * h * d * (sq * (sq + 1) // 2)
         b_ms, b_by = bound(nbytes, flops)
         log(f"flash_attention {name}: b={b} S={sq} H={h} KVH={kvh} D={d} "
-            f"max_abs_err={err:.3e} (tol {TOL}) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"max_abs_err={err:.3e} (tol {TOL}) ms={ms:.4f} (back to back "
+            f"{b2b_ms:.4f}) plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"(back to back {lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by})")
         if name == "main":
             rows["flash_attention"] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_back_to_back_ms=lib_b2b_ms)
     rows["flash_attention"]["max_abs_err"] = fa_err
 
     # K2: decode against a 1024-row cache (b=8, 32 heads, D=64)
@@ -177,13 +253,13 @@ def phase_kernels(dev):
         if not torch.allclose(out.float(), exp.float(), rtol=TOL, atol=TOL):
             raise AssertionError(f"flash_decode {name}: max abs err {err}")
         fd_err = max(fd_err, err)
-        ms = cuda_ms(lambda: FD.flash_decode(q, kc, vc, kv_len), 200)
+        ms, b2b_ms = times(lambda: FD.flash_decode(q, kc, vc, kv_len), 200)
         plain_ms = cuda_ms(lambda: FD.flash_decode_plain(q, kc, vc, kv_len),
                            10)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
         mask = (torch.arange(S, device=dev)[None, :]
                 < kv_len[:, None])[:, None, None, :]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms, lib_b2b_ms = times(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh), 200)
         rows_read = int(kv_len.sum().item())
         nbytes = 2 * (2 * b * h * d + 2 * rows_read * kvh * d) + 4 * b
@@ -191,15 +267,59 @@ def phase_kernels(dev):
         b_ms, b_by = bound(nbytes, flops)
         log(f"flash_decode {name}: b={b} S={S} H={h} KVH={kvh} D={d} "
             f"kv_len sum={rows_read} max_abs_err={err:.3e} (tol {TOL}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"ms={ms:.4f} (back to back {b2b_ms:.4f}) plain_ms="
+            f"{plain_ms:.4f} sdpa_ms={lib_ms:.4f} (back to back "
+            f"{lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by})")
         if name == "main":
             rows["flash_decode"] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_back_to_back_ms=lib_b2b_ms)
     rows["flash_decode"]["max_abs_err"] = fd_err
     rows["ssd_scan"] = ssd_rows(dev, gen)
+    kernel_variants(dev, gen)
     return rows
+
+
+def kernel_variants(dev, gen):
+    """The instantiations the main shapes do not reach, against their
+    plain versions: K1 at head dims 16, 32 and 128 (GQA 4:1, ragged, a
+    q_offset), K3 at (P, N) = (16, 8) (ragged at chunk 16, 2 groups, a
+    seeded state)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    for d in (16, 32, 128):
+        b, sq, off, h, kvh = 2, 150, 37, 8, 2
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(b, sq + off, kvh, d, generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        out = FA.flash_attention(q, k, v, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        exp = FA.flash_attention_plain(q, k, v, causal=True, q_offset=off)
+        err = (out.float() - exp.float()).abs().max().item()
+        log(f"flash_attention D={d}: b={b} Sq={sq} q_offset={off} H={h} "
+            f"KVH={kvh} max_abs_err={err:.3e} (tol {TOL})")
+        if not torch.allclose(out.float(), exp.float(), rtol=TOL, atol=TOL):
+            raise AssertionError(f"flash_attention D={d}: max abs err {err}")
+    b, s, nh, P, g, N, Q = 2, 37, 8, 16, 2, 8, 16
+    x = (torch.randn(b, s, nh, P, generator=gen, device=dev) * 0.5).bfloat16()
+    B, C = ((torch.randn(b, s, g, N, generator=gen, device=dev) * 0.5)
+            .bfloat16() for _ in range(2))
+    dt = F.softplus(torch.randn(b, s, nh, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.3)
+    init = torch.randn(b, nh, P, N, generator=gen, device=dev)
+    y, st = SSD.ssd_scan(x, dt, A, B, C, Q, init)
+    torch.cuda.synchronize()
+    ey, est = SSD.ssd_scan_plain(x, dt, A, B, C, Q, init)
+    rel_y = ((y.float() - ey.float()).abs().max()
+             / ey.float().abs().max()).item()
+    rel_s = ((st - est).abs().max() / est.abs().max()).item()
+    log(f"ssd_scan P={P} N={N}: b={b} S={s} nh={nh} g={g} Q={Q} "
+        f"init_state=True max err {rel_y:.3e} of max |y|, {rel_s:.3e} of "
+        f"max |state| (tol {SSD_TOL} of max)")
+    if not (rel_y <= SSD_TOL and rel_s <= SSD_TOL):
+        raise AssertionError(f"ssd_scan P={P} N={N}: {rel_y}, {rel_s}")
 
 
 def ssd_rows(dev, gen):
@@ -235,7 +355,7 @@ def ssd_rows(dev, gen):
                                  f"({rel_y:.3e} of max), state {err_s} "
                                  f"({rel_s:.3e} of max)")
         max_err = max(max_err, err_y)
-        ms = cuda_ms(lambda: SSD.ssd_scan(*args), 20)
+        ms, b2b_ms = times(lambda: SSD.ssd_scan(*args), 20)
         plain_ms = cuda_ms(lambda: SSD.ssd_scan_plain(*args), 3)
         # each input read once, each output written once; the products
         # the function needs: the causal Q x Q blocks (C.B^T and W.x over
@@ -252,12 +372,14 @@ def ssd_rows(dev, gen):
         log(f"ssd_scan {name}: b={b} S={s} nh={nh} P={P} N={N} g={g} "
             f"Q={Q} init_state={with_init} max_abs_err y={err_y:.3e} "
             f"({rel_y:.3e} of max |y|) state={err_s:.3e} ({rel_s:.3e} of "
-            f"max |state|) (tol {SSD_TOL} of max) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+            f"max |state|) (tol {SSD_TOL} of max) ms={ms:.4f} (back to "
+            f"back {b2b_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         if name == "main":
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+            row = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       library_back_to_back_ms=None)
     row["max_abs_err"] = max_err
     return row
 
@@ -552,6 +674,7 @@ def _leaves(tree):
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
+    occ = phase_occupancy(dev)
     rows = phase_kernels(dev)
     cfg, params = full_width_model(dev, "stablelm-1.6b")
     phase_reference(dev, cfg, params)
@@ -592,8 +715,12 @@ def main():
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_main_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "back_to_back_ms": r["back_to_back_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_back_to_back_ms": r["library_back_to_back_ms"],
+            "blocks_per_sm": {k: v for k, v in occ.items()
+                              if k.startswith(name)}})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0
                for k in kernels)
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,19 @@ import torch
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
+#: the fewest query rows a flash-attention block takes (D = 128)
+MIN_Q_TILE = 64
+
+
+def check_attention_sizes(b: int, sq: int, skv: int, h: int,
+                          q_offset: int) -> None:
+    """Sizes flash-attention's grid takes: b*h blocks along x (CUDA's
+    limit 2^31 - 1) and ceil(sq / q tile) along y (limit 65535), at least
+    one query and one key, and a causal offset that is not negative."""
+    if sq < 1 or skv < 1 or q_offset < 0 or b * h >= 2 ** 31 \
+            or -(-sq // MIN_Q_TILE) > 65535:
+        raise ValueError(f"unsupported sizes: sq={sq} skv={skv} "
+                         f"q_offset={q_offset} b*h={b * h}")
 
 
 def check_rows(name: str, t: torch.Tensor) -> None:

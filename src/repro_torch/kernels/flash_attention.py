@@ -15,12 +15,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import (HEAD_DIMS, check_cuda_bf16,
-                                         check_rows)
+from repro_torch.kernels._checks import (HEAD_DIMS, check_attention_sizes,
+                                         check_cuda_bf16, check_rows)
 
 NEG_INF = -1e30
 #: kernel launches made by flash_attention() (the CUDA route only)
@@ -36,7 +37,22 @@ def _lib() -> ctypes.CDLL:
                    _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _I, ctypes.c_float, _I, _P]
     fn.restype = _I
+    occ = lib.repro_flash_attention_occupancy
+    occ.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    occ.restype = _I
     return lib
+
+
+def occupancy(d: int, device: torch.device) -> Tuple[int, int]:
+    """(resident blocks per SM, dynamic shared memory bytes per block) of
+    the kernel for head dim ``d`` on a CUDA ``device``."""
+    blocks, smem = _I(), _I()
+    rc = _lib().repro_flash_attention_occupancy(
+        d, device.index or 0, ctypes.byref(blocks), ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"flash_attention occupancy query failed: CUDA "
+                           f"error {rc}")
+    return blocks.value, smem.value
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,9 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if sq < 1 or skv < 1 or q_offset < 0 or b * h > 65535:
-        raise ValueError(f"unsupported sizes: sq={sq} skv={skv} "
-                         f"q_offset={q_offset} b*h={b * h}")
+    check_attention_sizes(b, sq, skv, h, q_offset)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows(name, t)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

@@ -9,9 +9,11 @@ x (b, s, nh, P), dt (b, s, nh), A (nh,), B/C (b, s, g, N), an optional
 their strides (column slices of the conv output, not copied), head ``h``
 reads group ``h // (nh / g)`` (B/C are not repeated to every head), and
 one block per (b, head) loops over the chunks in order with the N×P state
-in shared memory. A ragged last chunk is masked: steps past ``s`` are never
-read and act as dt = 0 (no decay, no state write), as the padding of the
-reference does.
+in registers, its products on the tensor cores (bf16 operands rounded
+where ``repro.models.ssm`` rounds them, fp32 accumulation) and the next
+chunk's x/B/C in flight. A ragged last chunk is masked: steps past ``s``
+are never read and act as dt = 0 (no decay, no state write), as the
+padding of the reference does.
 
 ``ssd_scan`` launches the kernel for CUDA tensors (x/B/C bf16, dt/A/
 ``init_state`` fp32, (P, N) in ``SHAPES``, chunk a multiple of 8 up to 128)
@@ -48,7 +50,22 @@ def _lib() -> ctypes.CDLL:
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _P]
     fn.restype = _I
+    occ = lib.repro_ssd_scan_occupancy
+    occ.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    occ.restype = _I
     return lib
+
+
+def occupancy(P: int, N: int, device: torch.device) -> Tuple[int, int]:
+    """(resident blocks per SM, dynamic shared memory bytes per block) of
+    the kernel for (P, N) on a CUDA ``device``."""
+    blocks, smem = _I(), _I()
+    rc = _lib().repro_ssd_scan_occupancy(
+        P, N, device.index or 0, ctypes.byref(blocks), ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"ssd_scan occupancy query failed: CUDA error "
+                           f"{rc}")
+    return blocks.value, smem.value
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -55,14 +55,44 @@ def test_cuda_kernels_match_plain():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_every_head_dim_from_fused_qkv(d):
+    """Every instantiated head dim, q/k/v sliced from one fused QKV
+    projection (sequence stride (h + 2 kvh) d, not copied), GQA 4:1,
+    ragged lengths that end inside a kv tile and a q tile, an explicit
+    q_offset (a prefill continuing a cache), and full attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    for b, sq, h, kvh, off, causal in [(2, 200, 8, 2, 0, True),
+                                       (1, 77, 8, 2, 45, True),
+                                       (3, 130, 4, 1, 0, False),
+                                       (1, 1, 4, 4, 63, True)]:
+        skv = sq + off
+        qkv = torch.randn(b, skv, (h + 2 * kvh) * d, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q = qkv[:, off:, :h * d].unflatten(-1, (h, d))
+        k = qkv[..., h * d:(h + kvh) * d].unflatten(-1, (kvh, d))
+        v = qkv[..., (h + kvh) * d:].unflatten(-1, (kvh, d))
+        out = FA.flash_attention(q, k, v, causal=causal, q_offset=off)
+        exp = FA.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+        assert out.shape == (b, sq, h, d) and out.is_contiguous()
+        torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.gpu
 def test_ssd_scan_kernel_matches_plain():
     """Both instantiated (P, N) pairs; ragged lengths (13 and 37 at chunk
     16, 1000 at chunk 128), B/C groups shared by heads, a seeded state.
     x, B and C are column slices of one conv output, as the model passes
     them, and the rows past s hold NaN: the kernel never reads them.
-    Tolerance: max |diff| <= 2e-2 of max |y| and of max |state|; the plain
-    version rounds three intermediates to bf16 where the kernel keeps
-    fp32 (repro/models/ssm.py:111-134)."""
+    Tolerance: max |diff| <= 2e-2 of max |y| and of max |state|; the
+    kernel rounds the same three intermediates to bf16 as the plain
+    version (repro/models/ssm.py:111-134) but sums in another order, so a
+    weight can round to the neighbouring bf16 value. Chunk 24 is not a
+    multiple of the kernel's 16-row tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -74,7 +104,8 @@ def test_ssd_scan_kernel_matches_plain():
     for b, s, nh, P, g, N, chunk, with_init in [
             (2, 13, 8, 16, 1, 8, 16, False), (2, 37, 8, 16, 2, 8, 16, True),
             (2, 1000, 4, 64, 1, 64, 128, True),
-            (1, 256, 8, 64, 8, 64, 128, False)]:
+            (1, 256, 8, 64, 8, 64, 128, False),
+            (2, 100, 4, 64, 2, 64, 24, True)]:
         pad = 7
         conv = (rnd(b, s + pad, nh * P + 2 * g * N) * 0.5).to(torch.bfloat16)
         conv[:, s:] = float("nan")

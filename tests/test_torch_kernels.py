@@ -24,6 +24,7 @@ from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.kernels._checks import check_attention_sizes
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -167,6 +168,25 @@ def test_flash_decode_plain_needs_kv_len_at_least_one():
     kc = torch.zeros(2, 8, 2, 16)
     with pytest.raises(ValueError, match="kv_len"):
         FD.flash_decode(q, kc, kc, torch.tensor([3, 0], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("b,sq,skv,h,q_offset,ok", [
+    (8, 512, 512, 32, 0, True),             # the serving prefill
+    (1, 1, 64, 4, 63, True),                # one query continuing a cache
+    (2 ** 16, 1, 1, 2 ** 15 - 1, 0, True),  # b*h just under 2^31
+    (2 ** 16, 1, 1, 2 ** 15, 0, False),     # b*h = 2^31 blocks
+    (1, 65535 * 64, 1, 1, 0, True),         # the most q tiles of 64 rows
+    (1, 65535 * 64 + 1, 1, 1, 0, False),
+    (1, 0, 8, 1, 0, False), (1, 8, 0, 1, 0, False), (1, 8, 8, 1, -1, False),
+])
+def test_flash_attention_grid_limits(b, sq, skv, h, q_offset, ok):
+    """The wrapper's size check admits exactly what the kernels' grid
+    (b*h, q tiles) can launch; it needs no device."""
+    if ok:
+        check_attention_sizes(b, sq, skv, h, q_offset)
+    else:
+        with pytest.raises(ValueError, match="unsupported sizes"):
+            check_attention_sizes(b, sq, skv, h, q_offset)
 
 
 # ---------------------------------------------------------------------------

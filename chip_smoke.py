@@ -11,7 +11,9 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    and spills per kernel, and the resident blocks per SM of every
    instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. each kernel against its plain PyTorch version on the card, in bf16 at
-   the serving path's shapes: max abs error and tolerance, two times per
+   the serving paths' shapes (K1 at each model's prefill: main, ragged,
+   gqa, d96, gqa8_d128; K2 at each model's decode: main, ragged, gqa, d96,
+   gqa8_d128, b1; K3 at zamba2's): max abs error and tolerance, two times per
    call (``ms``: the device alone, many calls captured in one CUDA graph
    and replayed between CUDA events; ``back_to_back_ms``: the same calls
    issued from Python, so the wrapper's host cost is in it), the bound
@@ -19,8 +21,9 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    plain version's time and, as a yardstick the port never calls,
    ``F.scaled_dot_product_attention``'s two times (no PyTorch call
    computes the SSD scan); then every other instantiation (K1 at head
-   dims 16, 32 and 128, K3 at (P, N) = (16, 8)) against its plain
-   version on small ragged inputs;
+   dims 16, 32, 96 and 128, K2 at every (head dim, group) pair with its
+   own split count and 3 splits, K3 at (P, N) = (16, 8)) against its
+   plain version on small ragged inputs;
 3. the model at full width on a small input: stablelm-1.6b cut to 2 layers,
    prefill + 4 greedy decode steps through the kernels, against the same
    run with the kernels' plain versions in their place (bf16, on the card);
@@ -42,7 +45,13 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    zamba2-1.2b (38 layers, random weights from a torch.Generator seeded
    with 0), the same group and requests as phase 4; launches must equal,
    per chunk, 38 of the SSD scan, 6 of flash-attention and 6 x 15 of
-   flash-decode.
+   flash-decode;
+8. for phi-3-vision-4.2b (32 layers, head dim 96, a 144-row stubbed
+   patch-embedding prefix) and then yi-6b (32 layers, 32 query heads on
+   4 kv heads of 128), each at full width with random weights from a
+   torch.Generator seeded with 0: phase 3's reference check, then phase
+   4's main path, with 32 flash-attention launches per prefill and 32
+   flash-decode launches per decode step.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -66,6 +75,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 TOL = 2e-2                         # tests/test_kernels.py's bf16 tolerance
+TOL_TEXT = f"tol |diff| <= {TOL} + {TOL} |plain|"   # as torch.allclose
 #: the SSD scan's tolerance, relative to max |y| and max |state|: kernel
 #: and plain version round the same three intermediates to bf16
 #: (repro/models/ssm.py:111-134) but sum in other orders, so a weight can
@@ -169,8 +179,9 @@ def _kernel_name(mangled: str) -> str:
 
 
 def phase_occupancy(dev):
-    """Resident blocks per SM of every instantiation of K1 and K3."""
+    """Resident blocks per SM of every instantiation of the kernels."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels._checks import HEAD_DIMS
     occ = {}
@@ -179,6 +190,13 @@ def phase_occupancy(dev):
         occ[f"flash_attention D={d}"] = blocks
         log(f"flash_attention occupancy D={d}: {blocks} resident blocks per "
             f"SM, {smem} bytes of dynamic shared memory per block")
+    for d in HEAD_DIMS:
+        for group in FD.GROUPS:
+            blocks, smem = FD.occupancy(d, group, dev)
+            occ[f"flash_decode D={d} group={group}"] = blocks
+            log(f"flash_decode occupancy D={d} group={group}: {blocks} "
+                f"resident blocks per SM, {smem} bytes of dynamic shared "
+                f"memory per block")
     for P, N in SSD.SHAPES:
         blocks, smem = SSD.occupancy(P, N, dev)
         occ[f"ssd_scan P={P} N={N}"] = blocks
@@ -200,12 +218,15 @@ def phase_kernels(dev):
         return torch.randn(*shape, generator=gen, device=dev) \
             .to(torch.bfloat16)
 
-    rows = {}
-    # K1: prefill shapes (b=8, 32 heads, D=64), causal
+    rows = {"flash_attention": {"shapes": {}}, "flash_decode": {"shapes": {}}}
+    # K1 at the prefill shapes of the four served models (b=8), causal
     fa_err = 0.0
-    for name, sq, h, kvh in [("main", 512, 32, 32), ("ragged", 1000, 32, 32),
-                             ("gqa", 512, 32, 8)]:
-        b, d = 8, 64
+    for name, sq, h, kvh, d in [("main", 512, 32, 32, 64),
+                                ("ragged", 1000, 32, 32, 64),
+                                ("gqa", 512, 32, 8, 64),
+                                ("d96", 656, 32, 32, 96),
+                                ("gqa8_d128", 512, 32, 4, 128)]:
+        b = 8
         q, k, v = rnd(b, sq, h, d), rnd(b, sq, kvh, d), rnd(b, sq, kvh, d)
         out = FA.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
@@ -225,24 +246,29 @@ def phase_kernels(dev):
         flops = 4 * b * h * d * (sq * (sq + 1) // 2)
         b_ms, b_by = bound(nbytes, flops)
         log(f"flash_attention {name}: b={b} S={sq} H={h} KVH={kvh} D={d} "
-            f"max_abs_err={err:.3e} (tol {TOL}) ms={ms:.4f} (back to back "
+            f"max_abs_err={err:.3e} ({TOL_TEXT}) ms={ms:.4f} (back to back "
             f"{b2b_ms:.4f}) plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
             f"(back to back {lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by})")
+        row = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   library_back_to_back_ms=lib_b2b_ms, max_abs_err=err)
+        rows["flash_attention"]["shapes"][name] = row
         if name == "main":
-            rows["flash_attention"] = dict(
-                ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library_back_to_back_ms=lib_b2b_ms)
+            rows["flash_attention"].update(row)
     rows["flash_attention"]["max_abs_err"] = fa_err
 
-    # K2: decode against a 1024-row cache (b=8, 32 heads, D=64)
+    # K2 against a 1024-row cache at the decode shapes of the served models
     fd_err = 0.0
-    for name, kvh, lens in [("main", 32, "520"), ("ragged", 32, "random"),
-                            ("gqa", 8, "random")]:
-        b, S, h, d = 8, 1024, 32, 64
+    for name, b, h, kvh, d, lens in [("main", 8, 32, 32, 64, 520),
+                                     ("ragged", 8, 32, 32, 64, None),
+                                     ("gqa", 8, 32, 8, 64, None),
+                                     ("d96", 8, 32, 32, 96, 664),
+                                     ("gqa8_d128", 8, 32, 4, 128, 520),
+                                     ("b1", 1, 32, 32, 64, 520)]:
+        S = 1024
         q, kc, vc = rnd(b, 1, h, d), rnd(b, S, kvh, d), rnd(b, S, kvh, d)
-        if lens == "520":
-            kv_len = torch.full((b,), 520, dtype=torch.int32, device=dev)
+        if lens is not None:
+            kv_len = torch.full((b,), lens, dtype=torch.int32, device=dev)
         else:
             kv_len = torch.randint(1, S + 1, (b,), generator=gen,
                                    device=dev, dtype=torch.int32)
@@ -265,16 +291,27 @@ def phase_kernels(dev):
         nbytes = 2 * (2 * b * h * d + 2 * rows_read * kvh * d) + 4 * b
         flops = 4 * rows_read * h * d
         b_ms, b_by = bound(nbytes, flops)
+        n_split = FD.split_count(
+            b, kvh, S, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        # the device time at other split counts, for the split policy
+        sweep = {n: graph_ms(lambda: FD.flash_decode(q, kc, vc, kv_len,
+                                                     n_split=n), 200)
+                 for n in (1, 2, 4, 8, 16)}
         log(f"flash_decode {name}: b={b} S={S} H={h} KVH={kvh} D={d} "
-            f"kv_len sum={rows_read} max_abs_err={err:.3e} (tol {TOL}) "
-            f"ms={ms:.4f} (back to back {b2b_ms:.4f}) plain_ms="
-            f"{plain_ms:.4f} sdpa_ms={lib_ms:.4f} (back to back "
-            f"{lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by})")
+            f"kv_len sum={rows_read} n_split={n_split} max_abs_err="
+            f"{err:.3e} ({TOL_TEXT}) ms={ms:.4f} (back to back {b2b_ms:.4f})"
+            f" plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} (back to back "
+            f"{lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}); ms by "
+            f"n_split: " + ", ".join(f"{n}: {t:.4f}"
+                                     for n, t in sweep.items()))
+        row = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   library_back_to_back_ms=lib_b2b_ms, max_abs_err=err,
+                   n_split=n_split, ms_by_n_split=sweep)
+        rows["flash_decode"]["shapes"][name] = row
         if name == "main":
-            rows["flash_decode"] = dict(
-                ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library_back_to_back_ms=lib_b2b_ms)
+            rows["flash_decode"].update(row)
     rows["flash_decode"]["max_abs_err"] = fd_err
     rows["ssd_scan"] = ssd_rows(dev, gen)
     kernel_variants(dev, gen)
@@ -283,13 +320,38 @@ def phase_kernels(dev):
 
 def kernel_variants(dev, gen):
     """The instantiations the main shapes do not reach, against their
-    plain versions: K1 at head dims 16, 32 and 128 (GQA 4:1, ragged, a
-    q_offset), K3 at (P, N) = (16, 8) (ragged at chunk 16, 2 groups, a
-    seeded state)."""
+    plain versions: K1 at head dims 16, 32, 96 and 128 (GQA 4:1, ragged, a
+    q_offset), K2 at every (head dim, group) pair (ragged lengths, its own
+    split count and 3 splits), K3 at (P, N) = (16, 8) (ragged at chunk
+    16, 2 groups, a seeded state)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
-    for d in (16, 32, 128):
+    from repro_torch.kernels._checks import HEAD_DIMS
+    fd_err = 0.0
+    for d in HEAD_DIMS:
+        for group in FD.GROUPS:
+            b, S, kvh = 2, 300, 2
+            q = torch.randn(b, 1, kvh * group, d, generator=gen,
+                            device=dev).bfloat16()
+            kc, vc = (torch.randn(b, S, kvh, d, generator=gen,
+                                  device=dev).bfloat16() for _ in range(2))
+            kv_len = torch.randint(1, S + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            exp = FD.flash_decode_plain(q, kc, vc, kv_len).float()
+            for n_split in (None, 3):
+                out = FD.flash_decode(q, kc, vc, kv_len, n_split=n_split)
+                torch.cuda.synchronize()
+                fd_err = max(fd_err, (out.float() - exp).abs().max().item())
+                if not torch.allclose(out.float(), exp, rtol=TOL, atol=TOL):
+                    raise AssertionError(
+                        f"flash_decode D={d} group={group} n_split="
+                        f"{n_split}: max abs err {fd_err}")
+    log(f"flash_decode every (D, group) in {HEAD_DIMS} x {FD.GROUPS}: b=2 "
+        f"S=300 KVH=2 ragged, n_split its own and 3: max_abs_err="
+        f"{fd_err:.3e} ({TOL_TEXT})")
+    for d in (16, 32, 96, 128):
         b, sq, off, h, kvh = 2, 150, 37, 8, 2
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).bfloat16()
         k, v = (torch.randn(b, sq + off, kvh, d, generator=gen,
@@ -299,7 +361,7 @@ def kernel_variants(dev, gen):
         exp = FA.flash_attention_plain(q, k, v, causal=True, q_offset=off)
         err = (out.float() - exp.float()).abs().max().item()
         log(f"flash_attention D={d}: b={b} Sq={sq} q_offset={off} H={h} "
-            f"KVH={kvh} max_abs_err={err:.3e} (tol {TOL})")
+            f"KVH={kvh} max_abs_err={err:.3e} ({TOL_TEXT})")
         if not torch.allclose(out.float(), exp.float(), rtol=TOL, atol=TOL):
             raise AssertionError(f"flash_attention D={d}: max abs err {err}")
     b, s, nh, P, g, N, Q = 2, 37, 8, 16, 2, 8, 16
@@ -432,18 +494,25 @@ def phase_reference(dev, cfg, params):
     versions in their place, both in bf16 on the card. The two differ by
     bf16 rounding inside attention, which the random weights' very sharp
     softmax amplifies from layer to layer: tolerance max |dlogit| <=
-    5e-2 * max |logit|."""
+    5e-2 * max |logit|. A model with a modality prefix (phi-3-vision)
+    gets random prefix embeddings, as the engine feeds it."""
     from repro_torch.models import model as M
     cfg2 = cfg.replace(n_layers=2)
     params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
                            dtype=torch.int32).to(dev)
+    prefix = None
+    if cfg.prefix_len:
+        prefix = (torch.randn(2, cfg.prefix_len, cfg.d_model, generator=gen)
+                  * 0.02).to(dev)
+    max_len = 128 + cfg.prefix_len
 
     def run():
         out = []
         with torch.no_grad():
-            logits, cache = M.prefill(cfg2, params2, tokens, max_len=128)
+            logits, cache = M.prefill(cfg2, params2, tokens, prefix,
+                                      max_len=max_len)
             out.append(logits.float())
             for _ in range(4):
                 tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -462,8 +531,9 @@ def phase_reference(dev, cfg, params):
         raise AssertionError("non-finite logits through the kernels")
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
     same = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"reference check (stablelm-1.6b widths, 2 layers, b=2, prompt 64, "
-        f"4 decode steps, bf16): kernels vs plain versions, max |dlogit| / "
+    log(f"reference check ({cfg.arch_id} widths, 2 layers, b=2, prompt 64"
+        f"{f' + {cfg.prefix_len} prefix rows' if prefix is not None else ''}"
+        f", 4 decode steps, bf16): kernels vs plain versions, max |dlogit| / "
         f"max |logit| = {rel:.3e} (tol 5e-2), greedy tokens equal "
         f"{same:.3f}")
     if rel > 5e-2:
@@ -671,26 +741,31 @@ def _leaves(tree):
             yield v
 
 
+def free_model():
+    """Drop the previous model's weights before the next one is drawn:
+    the engines' executors hold closures over their engine, a reference
+    cycle, so collect it, or the weights stay allocated and count in the
+    next model's peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated before the next model: "
+        f"{torch.cuda.memory_allocated()} bytes")
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
     occ = phase_occupancy(dev)
     rows = phase_kernels(dev)
+    counts = {}
     cfg, params = full_width_model(dev, "stablelm-1.6b")
     phase_reference(dev, cfg, params)
-    counts = {}
     counts["stablelm-1.6b"], main_out = phase_main(
         dev, cfg, params, {"flash_attention": cfg.n_layers},
         {"flash_decode": cfg.n_layers})
     phase_hetero(dev, main_out)
-    # the engines' executors hold closures over their engine, a reference
-    # cycle: collect it, or stablelm's weights stay allocated and count in
-    # zamba2's peak memory
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"device memory allocated before zamba2: "
-        f"{torch.cuda.memory_allocated()} bytes")
+    free_model()
     cfg, params = full_width_model(dev, "zamba2-1.2b")
     phase_reference_hybrid(dev, cfg, params)
     n_apps = cfg.n_layers // cfg.hybrid.attn_every
@@ -698,6 +773,16 @@ def main():
         dev, cfg, params,
         {"ssd_scan": cfg.n_layers, "flash_attention": n_apps},
         {"flash_decode": n_apps})
+    # head dim 96 with a 144-row patch-embedding prefix, then GQA 8:1 at
+    # head dim 128
+    for arch in ("phi-3-vision-4.2b", "yi-6b"):
+        del params
+        free_model()
+        cfg, params = full_width_model(dev, arch)
+        phase_reference(dev, cfg, params)
+        counts[arch], _ = phase_main(
+            dev, cfg, params, {"flash_attention": cfg.n_layers},
+            {"flash_decode": cfg.n_layers})
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),
@@ -720,7 +805,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_back_to_back_ms": r["library_back_to_back_ms"],
             "blocks_per_sm": {k: v for k, v in occ.items()
-                              if k.startswith(name)}})
+                              if k.startswith(name)},
+            "shapes": r.get("shapes", {})})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0
                for k in kernels)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 #: the fewest query rows a flash-attention block takes (D = 128)
 MIN_Q_TILE = 64
 

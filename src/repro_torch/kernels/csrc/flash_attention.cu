@@ -40,13 +40,16 @@
 //   O += P V on wgmma.m64n64k16 (see the note above the kernel); tiles in
 //   the 128-byte swizzle; ~66 KB of shared memory and <= 128 registers a
 //   thread: 2 resident blocks per SM.
-// D = 16, 32, 128 (flash_attention_kernel): 4 warps; each warp owns 32
-//   query rows (two m16 tiles sharing every K and V fragment) for
-//   D <= 64, 16 rows for D = 128; fragments from ldmatrix (Q, K) and
+// D = 16, 32, 96, 128 (flash_attention_kernel): 4 warps; each warp owns
+//   32 query rows (two m16 tiles sharing every K and V fragment) for
+//   D <= 64, 16 rows for D = 96 and 128; fragments from ldmatrix (Q, K) and
 //   ldmatrix.trans (V), rows padded by 8 elements so the 8 row addresses
 //   of each 8x8 matrix fall in distinct banks; S and O on
 //   mma.sync.m16n8k16, P re-packed from the S accumulators (the C layout
-//   of m16n8 is the A layout of m16k16).
+//   of m16n8 is the A layout of m16k16). D = 96 (phi-3-vision) needs no
+//   code of its own: 6 k-steps and 12 n-tiles, rows of 104 elements
+//   (208 B: 16-byte aligned, and the 8 row addresses of an ldmatrix fall
+//   in distinct banks), 64-row q tiles, 3 stages, 93,184 B.
 // repro_flash_attention_occupancy reports each instantiation's resident
 // blocks per SM. The causal mask is row + q_offset >= col, as in
 // repro.models.attention.chunked_attention; q, k, v are read in the model
@@ -158,7 +161,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        long long k_sb, long long k_ss, long long k_sh,
                        long long v_sb, long long v_ss, long long v_sh,
                        int q_offset, int causal, float scale_log2) {
-  static_assert(D % 16 == 0 && D <= 128, "D must be 16, 32, 64 or 128");
+  static_assert(D % 16 == 0 && D <= 128,
+                "D must be 16, 32, 64, 96 or 128");
   constexpr int BM = Cfg<D>::BM, SD = Cfg<D>::SD, MT = Cfg<D>::MT;
   constexpr int STAGES = Cfg<D>::STAGES;
   constexpr int WROWS = 16 * MT;        // query rows per warp
@@ -740,6 +744,10 @@ extern "C" int repro_flash_attention_bf16(
       rc = launch<64>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
                       k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
       break;
+    case 96:
+      rc = launch<96>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
+                      k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
+      break;
     case 128:
       rc = launch<128>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
                        k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
@@ -761,6 +769,7 @@ extern "C" int repro_flash_attention_occupancy(int d, int device, int* blocks,
     case 16: return occupancy<16>(blocks, smem_bytes);
     case 32: return occupancy<32>(blocks, smem_bytes);
     case 64: return occupancy<64>(blocks, smem_bytes);
+    case 96: return occupancy<96>(blocks, smem_bytes);
     case 128: return occupancy<128>(blocks, smem_bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,7 +8,7 @@ k/v (b, skv, kvh, d) through strides and writes o (b, sq, h, d); query head
 ``q_offset + row >= col`` as in ``chunked_attention``.
 
 ``flash_attention`` launches the kernel for CUDA tensors (bf16, head dims
-16/32/64/128) and raises on anything it does not take; for CPU tensors it
+16/32/64/96/128) and raises on anything it does not take; for CPU tensors it
 computes ``flash_attention_plain``. ``launches`` counts kernel launches.
 """
 from __future__ import annotations

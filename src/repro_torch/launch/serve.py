@@ -6,9 +6,11 @@
 
 The first group runs on the card (``cuda:0``) and the others on the CPU.
 ``--device cpu`` runs every group on the CPU; without it, a machine with no
-CUDA device is an error, never a silent fall-back. Groups syntax:
-name[:k=v,...] where the kind is inferred (first group = accel), knobs:
-async=<depth>, slow=<factor>, chunk=<fixed>, pri=1. Prints a JSON report.
+CUDA device is an error, never a silent fall-back. The CUDA kernels take
+bfloat16, so ``--dtype float32`` serves only with ``--device cpu``.
+Groups syntax: name[:k=v,...] where the kind is inferred (first group =
+accel), knobs: async=<depth>, slow=<factor>, chunk=<fixed>, pri=1. Prints
+a JSON report.
 """
 from __future__ import annotations
 
@@ -70,15 +72,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.requests < 1:
         ap.error("--requests must be >= 1")
-    if args.device == "cuda" and not torch.cuda.is_available():
-        ap.error("no CUDA GPU is available (torch.cuda.is_available() is "
-                 "False); pass --device cpu to serve on the CPU")
-
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
+    if args.device == "cuda" and cfg.dtype != "bfloat16":
+        ap.error(f"--dtype {cfg.dtype}: the CUDA kernels take bfloat16; "
+                 f"pass --device cpu to serve {cfg.dtype} on the CPU")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA GPU is available (torch.cuda.is_available() is "
+                 "False); pass --device cpu to serve on the CPU")
     groups = parse_groups(args.groups)
     for i, g in enumerate(groups):
         g.device = torch.device("cuda", 0) \

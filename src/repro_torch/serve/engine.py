@@ -9,8 +9,9 @@ which feeds eq. (4).
 
 Each group runs on one torch device (``GroupDef.device``): a CUDA group
 runs the model with the hand-written kernels on its executor's stream, a
-CPU group runs the eager path. The engine holds one copy of the weights
-per device that a group uses.
+CPU group runs the eager path. The kernels take bfloat16, so a CUDA group
+with a config of another dtype is refused before any weight is placed.
+The engine holds one copy of the weights per device that a group uses.
 """
 from __future__ import annotations
 
@@ -92,6 +93,11 @@ class HeteroServeEngine:
         self.cfg = cfg
         self.groups = groups
         self.devices = {g.name: resolve_device(g.device) for g in groups}
+        cuda = sorted(n for n, d in self.devices.items() if d.type == "cuda")
+        if cuda and cfg.activation_dtype != torch.bfloat16:
+            raise ValueError(
+                f"{cfg.arch_id} in {cfg.dtype} on CUDA (groups {cuda}): the "
+                f"CUDA kernels take bfloat16; run {cfg.dtype} on the CPU")
         self.prompt_len = prompt_len
         self.decode_tokens = decode_tokens
         self.max_len = max_len or bucket(prompt_len + decode_tokens)

@@ -55,7 +55,7 @@ def test_cuda_kernels_match_plain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 def test_flash_attention_every_head_dim_from_fused_qkv(d):
     """Every instantiated head dim, q/k/v sliced from one fused QKV
     projection (sequence stride (h + 2 kvh) d, not copied), GQA 4:1,
@@ -80,6 +80,71 @@ def test_flash_attention_every_head_dim_from_fused_qkv(d):
         assert out.shape == (b, sq, h, d) and out.is_contiguous()
         torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,S,h,kvh,d", [
+    (8, 1024, 32, 32, 96),      # phi-3-vision decode
+    (8, 1024, 32, 4, 128),      # yi-6b decode, GQA 8:1
+    (1, 1024, 32, 32, 64),      # batch 1: the cache split across blocks
+    (3, 200, 8, 4, 16),         # a short cache, GQA 2:1
+])
+def test_flash_decode_split_kv(b, S, h, kvh, d):
+    """The split-KV kernel at the split count it picks and at forced ones
+    (1, 3, 8: every split but the first empty when kv_len = 1), against
+    both plain versions, with kv_len in {1, S} and random; rows past
+    kv_len hold NaN and are never read; q is a strided slice of a fused
+    projection and the caches a layer's slice of a stacked cache. Calls
+    back to back give the same result, and leave the merge's tickets at
+    zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(d + kvh)
+    qkv = torch.randn(b, 1, (h + 2 * kvh) * d, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    q = qkv[..., :h * d].unflatten(-1, (h, d))
+    cache = torch.randn(2, 2, b, S, kvh, d, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    kc, vc = cache[0, 1], cache[1, 1]
+    for kv_len in (torch.ones(b, dtype=torch.int32, device=dev),
+                   torch.full((b,), S, dtype=torch.int32, device=dev),
+                   torch.randint(1, S + 1, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32)):
+        exp = FD.flash_decode_plain(q, kc, vc, kv_len)
+        poisoned_k, poisoned_v = kc.clone(), vc.clone()
+        for row, n in enumerate(kv_len.tolist()):
+            poisoned_k[row, n:] = float("nan")
+            poisoned_v[row, n:] = float("nan")
+        for n_split in (None, 1, 3, 8):
+            out = FD.flash_decode(q, kc, vc, kv_len, n_split=n_split)
+            again = FD.flash_decode(q, poisoned_k, poisoned_v, kv_len,
+                                    n_split=n_split)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2,
+                                       atol=2e-2)
+            if n_split is not None:
+                split = FD.flash_decode_split_plain(q, kc, vc, kv_len,
+                                                    n_split)
+                torch.testing.assert_close(out.float(), split.float(),
+                                           rtol=2e-2, atol=2e-2)
+            torch.testing.assert_close(again, out, rtol=0, atol=0)
+    # captured in a CUDA graph on a stream whose tickets exist already, a
+    # split call replays right: the merging blocks leave them at zero
+    eager = FD.flash_decode(q, kc, vc, kv_len, n_split=3)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        FD.flash_decode(q, kc, vc, kv_len, n_split=3)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = FD.flash_decode(q, kc, vc, kv_len, n_split=3)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(captured, eager, rtol=0, atol=0)
+    assert all(int(t.abs().sum()) == 0 for t in FD._counters.values())
 
 
 @pytest.mark.gpu

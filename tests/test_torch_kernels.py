@@ -55,6 +55,7 @@ def _bh(x, b, heads):
     (2, 8, 2, 128, 64),     # GQA 4:1
     (1, 8, 1, 256, 64),     # MQA
     (2, 4, 2, 64, 128),     # wide head
+    (1, 4, 4, 128, 96),     # phi-3-vision's head dim
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_matches_pallas(b, h, kvh, s, d, causal):
@@ -124,6 +125,8 @@ def test_ops_attention_bshd_matches_model_layout():
     (2, 4, 4, 256, 32),
     (2, 8, 2, 512, 64),
     (1, 4, 1, 128, 128),
+    (2, 4, 4, 256, 96),     # phi-3-vision's head dim
+    (2, 16, 2, 256, 128),   # yi-6b's GQA 8:1
 ])
 def test_flash_decode_plain_matches_pallas(b, h, kvh, S, d):
     rng = np.random.default_rng(11)
@@ -161,6 +164,48 @@ def test_flash_decode_reads_a_strided_cache_slice():
     exp = FD.flash_decode(q, cache[1].contiguous(), cache[2].contiguous(),
                           kv_len)
     np.testing.assert_array_equal(out.numpy(), exp.numpy())
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 8])
+@pytest.mark.parametrize("lens", ["one", "boundary", "full"])
+def test_flash_decode_split_plain_matches_plain(n_split, lens):
+    """The split-and-merge form the kernel computes against the one-pass
+    plain version: kv_len = 1 (every split but the first empty), kv_len on
+    a split boundary (3 splits of 32 rows), kv_len = S, and a mixed batch
+    with a ragged last tile; GQA 4:1 at head dim 96. fp32, TOL (only the
+    summation order differs)."""
+    rng = np.random.default_rng(17)
+    b, S, h, kvh, d = 3, 96, 8, 2, 96
+    q = torch.from_numpy(_randn(rng, b, 1, h, d))
+    kc, vc = (torch.from_numpy(_randn(rng, b, S, kvh, d)) for _ in range(2))
+    kv_len = torch.tensor({"one": [1, 1, 1], "boundary": [32, 64, 37],
+                           "full": [S, S, 50]}[lens], dtype=torch.int32)
+    out = FD.flash_decode_split_plain(q, kc, vc, kv_len, n_split)
+    np.testing.assert_allclose(
+        out.numpy(), FD.flash_decode_plain(q, kc, vc, kv_len).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("b,kvh,S", [
+    (8, 32, 1024),    # the serving decode (stablelm, phi-3-vision)
+    (8, 4, 1024),     # yi-6b
+    (1, 32, 1024),    # batch 1
+    (1, 4, 1024),     # batch 1, GQA 8:1
+    (1, 1, 100),      # a short cache: one split
+    (64, 32, 4096),   # already more blocks than two per SM
+])
+def test_split_count_keeps_a_tile_per_split(b, kvh, S):
+    """At least MIN_SPLIT_ROWS rows of the padded cache (whole 16-row
+    tiles) per split, never more than MAX_SPLIT, and more than b*kvh
+    blocks whenever b*kvh blocks leave the 132 SMs of an H100 short of
+    two each and the cache has room for two splits."""
+    n = FD.split_count(b, kvh, S, 132)
+    assert 1 <= n <= FD.MAX_SPLIT
+    assert FD.MIN_SPLIT_ROWS % FD.TILE_ROWS == 0
+    assert n == 1 or S // n >= FD.MIN_SPLIT_ROWS
+    if b * kvh < 132 and S >= 2 * FD.MIN_SPLIT_ROWS:
+        assert n > 1
+    if b * kvh >= 2 * 132:
+        assert n == 1
 
 
 def test_flash_decode_plain_needs_kv_len_at_least_one():

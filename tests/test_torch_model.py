@@ -222,13 +222,15 @@ def test_bridge_carries_the_zamba2_tree(n_layers):
 # the whole reduced model: prefill + decode against JAX
 # ---------------------------------------------------------------------------
 
-def _prefill_decode_parity(arch, tol):
-    """Reduced ``arch`` in fp32 with 2 layers and JAX's weights: prefill
-    logits, then 4 decode steps fed the same (JAX's greedy) tokens, and the
-    cache at the end. Configs with a modality prefix get the same random
-    prefix embeddings on both sides."""
-    cfg_j = jax_reduced(arch).replace(n_layers=2, dtype="float32")
-    cfg_t = get_reduced_config(arch).replace(n_layers=2, dtype="float32")
+def _prefill_decode_parity(arch, tol, **overrides):
+    """Reduced ``arch`` in fp32 with 2 layers (and ``overrides``) and JAX's
+    weights: prefill logits, then 4 decode steps fed the same (JAX's
+    greedy) tokens, and the cache at the end. Configs with a modality
+    prefix get the same random prefix embeddings on both sides."""
+    cfg_j = jax_reduced(arch).replace(n_layers=2, dtype="float32",
+                                      **overrides)
+    cfg_t = get_reduced_config(arch).replace(n_layers=2, dtype="float32",
+                                             **overrides)
     jparams = JM.init_params(cfg_j, jax.random.PRNGKey(0))
     tparams = params_from_jax(cfg_t, jax.tree.map(np.asarray, jparams),
                               "cpu")
@@ -277,3 +279,15 @@ def test_reduced_attention_families_prefill_and_decode_match_jax(arch):
     differences reach 5.5e-5 on logits of magnitude ~3 (measured; no trend
     from step to step)."""
     _prefill_decode_parity(arch, dict(rtol=1e-4, atol=1e-4))
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("phi-3-vision-4.2b", dict(head_dim=96)),
+    ("yi-6b", dict(n_heads=8, n_kv_heads=1)),
+])
+def test_reduced_models_at_the_full_widths_head_shapes(arch, overrides):
+    """The head shapes of the two full-width models the card serves that
+    the reduced configs (head dim 16, 2:1) do not reach: phi-3-vision's
+    head dim 96 and yi-6b's 8:1 query heads per kv head. Tolerance as the
+    test above."""
+    _prefill_decode_parity(arch, dict(rtol=1e-4, atol=1e-4), **overrides)

@@ -235,6 +235,35 @@ def test_launcher_refuses_to_run_without_a_card(capsys):
     assert "no CUDA GPU" in capsys.readouterr().err
 
 
+def test_launcher_refuses_float32_on_the_card(capsys):
+    """fp32 on CUDA is refused before any engine is built, and before the
+    check for a card, so this machine reaches it with or without one;
+    ``--device cpu`` serves fp32."""
+    with pytest.raises(SystemExit) as exc:
+        serve_cli.main(["--arch", "stablelm-1.6b", "--reduced", "--dtype",
+                        "float32"])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert "bfloat16" in err and "--device cpu" in err
+    serve_cli.main(["--arch", "stablelm-1.6b", "--reduced", "--device",
+                    "cpu", "--requests", "2", "--prompt-len", "8",
+                    "--decode-tokens", "2", "--dtype", "float32",
+                    "--groups", "accel:chunk=2"])
+    assert json.loads(capsys.readouterr().out)["new_tokens"] == 4
+
+
+def test_engine_refuses_float32_on_a_cuda_group(tiny_cfgs):
+    """A CUDA group with an fp32 config is refused when the engine is
+    built, before any weight is drawn or placed (so no card is needed
+    to see it); the same config serves on a CPU group."""
+    _, cfg = tiny_cfgs
+    groups = [GroupDef("accel", DeviceKind.ACCEL, device="cuda:0"),
+              GroupDef("cpu0", DeviceKind.BIG, device=CPU)]
+    with pytest.raises(ValueError, match="bfloat16"):
+        HeteroServeEngine(cfg, groups)
+    HeteroServeEngine(cfg, groups[1:])
+
+
 def test_launcher_serves_on_the_cpu_when_asked(capsys):
     serve_cli.main(["--arch", "stablelm-1.6b", "--reduced", "--device",
                     "cpu", "--requests", "6", "--prompt-len", "8",

@@ -51,7 +51,21 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    4 kv heads of 128), each at full width with random weights from a
    torch.Generator seeded with 0: phase 3's reference check, then phase
    4's main path, with 32 flash-attention launches per prefill and 32
-   flash-decode launches per decode step.
+   flash-decode launches per decode step;
+9. the queued path, run after phase 5 on phase 4's weights:
+   ``HeteroServeEngine.serve_jobs`` on full-width stablelm-1.6b, 64 jobs
+   of one request (512 prompt + 16 decode tokens), tiers urgent /
+   standard / batch in turn, tenants ``gold:weight=10,free:weight=1:
+   quota=8``, batches of 8 jobs with 2 in flight, an SLO that admits
+   every job, and per-tenant energy modelled at the card's power limit;
+   every job done, and launches exact for the chunks the run counted;
+10. the federated path, run after phase 8 on yi-6b's weights:
+   ``serve_jobs_federated`` with 3 runtimes on cuda:0 sharing one weight
+   copy, the same jobs at standard priority: with no faults (launches
+   exact over the three dispatcher threads, generated tokens held
+   against a serial re-run on the default stream), with runtime r1
+   killed at half the jobs (one failover, every job done, every split
+   ticket back at zero), and under the chaos plan of seed 0.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -752,6 +766,275 @@ def free_model():
         f"{torch.cuda.memory_allocated()} bytes")
 
 
+TENANTS = "gold:weight=10,free:weight=1:quota=8"
+#: a queue-delay SLO no job of these runs comes near: admission admits all
+SLO_ADMIT_ALL_S = 3600.0
+JOBS, JOB_PROMPT, JOB_DECODE = 64, 512, 16
+MODELLED = "modelled: busy seconds x power limit, not measured"
+
+
+def _power_limit_w(smi: str) -> float:
+    """The watts of nvidia-smi's ``name, 700.00 W`` line."""
+    return float(smi.rsplit(",", 1)[1].split()[0])
+
+
+def _jobs(registry, priority):
+    """``JOBS`` jobs of one request each, spread round-robin over the
+    tenants, in the launcher's tiers (``mix`` cycles urgent / standard /
+    batch)."""
+    from repro_torch.core.types import TIERS
+    from repro_torch.queue import Job
+    names = registry.names()
+    return [Job(items=1, priority=i % 3,
+                tier=TIERS[i % len(TIERS)] if priority == "mix"
+                else priority, tenant=names[i % len(names)])
+            for i in range(JOBS)]
+
+
+def _recording_engine(cfg, params, dev, telemetry):
+    """A ``HeteroServeEngine`` (group ``accel:chunk=8:async=2`` on
+    ``dev``, the loaded weights) whose executors keep, for every chunk
+    they fetch, its padded prompt batch and its generated tokens: a
+    wrapper around each executor's step (to carry the prompt batch along)
+    and fetch. The engine itself is unchanged."""
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+
+    class RecordingEngine(HeteroServeEngine):
+        def _make_executor(self, g, key=None):
+            ex = super()._make_executor(g, key)
+            step, fetch = ex.step, ex.fetch
+
+            def step_keeping_prompts(batch):
+                return step(batch), batch["tokens"]
+
+            def fetch_keeping_tokens(outs):
+                toks, prompts = outs
+                res = fetch(toks)
+                self.fetched.append((prompts.cpu().numpy(),
+                                     res["tokens_out"]))
+                return res
+
+            ex.step, ex.fetch = step_keeping_prompts, fetch_keeping_tokens
+            return ex
+
+    groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2)]
+    eng = RecordingEngine(cfg, groups, prompt_len=JOB_PROMPT,
+                          decode_tokens=JOB_DECODE, seed=0,
+                          telemetry=telemetry, params=params)
+    eng.fetched = []
+    return eng
+
+
+def _chunks_counted(telemetry) -> int:
+    """Chunks the run's schedulers counted (``sched.chunks``, every group
+    and runtime); fails if the registry dropped a completion batch."""
+    snap = telemetry.registry.snapshot()
+    if snap["gauges"].get("sched.observe_lost_batches"):
+        raise AssertionError("telemetry lost completion batches")
+    return int(sum(v for k, v in snap["counters"].items()
+                   if k.startswith("sched.chunks")))
+
+
+def _overlapped_batches(telemetry) -> int:
+    """Batches submitted before the previous batch finished, from the
+    service's ``batch:N`` spans (submitted -> finished, N in finishing
+    order): the count ``ServiceStats.record_window`` keeps."""
+    spans = sorted((int(e["name"].split(":")[1]), e["ts"], e["ts"] + e["dur"])
+                   for e in telemetry.tracer.chrome_events()
+                   if e.get("cat") == "service"
+                   and e["name"].startswith("batch:"))
+    return sum(1 for prev, cur in zip(spans, spans[1:]) if cur[1] < prev[2])
+
+
+def _expect_launches(counts, chunks, n_layers):
+    want = {"flash_attention": chunks * n_layers,
+            "flash_decode": chunks * n_layers * (JOB_DECODE - 1),
+            "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want} "
+                             f"for {chunks} chunks")
+
+
+def phase_queued(dev, cfg, params, smi):
+    """Phase 9: ``serve_jobs`` on full-width stablelm-1.6b (phase 4's
+    weights): 64 jobs of one request (512 prompt + 16 decode tokens),
+    tenants gold (weight 10) and free (weight 1, quota 8), tiers urgent /
+    standard / batch in turn, batches of 8 jobs, 2 batches in flight, an
+    SLO that admits every job, and an energy model billing the accel
+    group at the card's power limit (idle 0 W)."""
+    from repro_torch import telemetry as telemetry_mod
+    from repro_torch.core.energy import EnergyModel, PowerSpec
+    from repro_torch.tenancy import TenantRegistry
+    registry = TenantRegistry.parse(TENANTS)
+    watts = _power_limit_w(smi)
+    energy = EnergyModel({"accel": PowerSpec(active_w=watts, idle_w=0.0)})
+    tel = telemetry_mod.Telemetry()
+    eng = _recording_engine(cfg, params, dev, tel)
+    jobs = _jobs(registry, "mix")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    rep = eng.serve_jobs(jobs, slo_delay_s=SLO_ADMIT_ALL_S, batch_jobs=8,
+                         pipeline_depth=2, tenants=registry,
+                         energy_model=energy, timeout_s=300.0)
+    counts = _launches()
+    torch.cuda.synchronize()
+    chunks = _chunks_counted(tel)
+    items = sum(u["items"] for u in rep.per_tenant.values())
+    out = {
+        "jobs": rep.jobs, "done": rep.done, "failed": rep.failed,
+        "cancelled": rep.cancelled, "drained": rep.drained,
+        "batches": rep.batches, "chunks": chunks,
+        "new_tokens": rep.new_tokens, "time_s": rep.time_s,
+        "tok_per_s": rep.new_tokens / max(rep.time_s, 1e-9),
+        "queue_delay_s": rep.queue_delay,
+        "express_batches": rep.express_batches,
+        "overlapped_batches": _overlapped_batches(tel),
+        "per_tenant": {t: {k: u[k] for k in ("items", "busy_s", "energy_j",
+                                             "edp")}
+                       for t, u in rep.per_tenant.items()},
+        "energy": f"{MODELLED} ({watts} W)",
+        "launches": counts,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log("queued path report (stablelm-1.6b, serve_jobs): " + json.dumps(out))
+    if not rep.drained or rep.done != JOBS or rep.failed or rep.cancelled:
+        raise AssertionError(f"queued run incomplete: {out}")
+    if items != JOBS or len(eng.fetched) != chunks:
+        raise AssertionError(f"per-tenant items {items}, fetched chunks "
+                             f"{len(eng.fetched)}, counted {chunks}")
+    _expect_launches(counts, chunks, cfg.n_layers)
+    return counts
+
+
+def _greedy(cfg, params, prompts, max_len):
+    """The engine's step, serially on the default stream: prefill then
+    ``JOB_DECODE - 1`` greedy decode steps."""
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        logits, cache = M.prefill(cfg, params, torch.as_tensor(
+            prompts, device=params["embed"].device), max_len=max_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks = [tok]
+        for _ in range(JOB_DECODE - 1):
+            logits, cache = M.decode_step(cfg, params, cache, tok)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        return torch.cat(toks, dim=1).cpu().numpy()
+
+
+def _fed_out(frep):
+    fed = frep.fed
+    return {
+        "runtimes": fed.runtimes, "alive": fed.alive, "jobs": fed.jobs,
+        "done": fed.done, "failed": fed.failed, "cancelled": fed.cancelled,
+        "requeues": fed.requeues, "recovered": fed.recovered,
+        "failovers": fed.failovers, "killed": fed.killed,
+        "drained": frep.drained, "new_tokens": frep.new_tokens,
+        "time_s": fed.time_s,
+        "tok_per_s": frep.new_tokens / max(fed.time_s, 1e-9),
+        "per_runtime": fed.per_runtime,
+        "per_tenant_items": fed.per_tenant_items,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase_federated(dev, cfg, params):
+    """Phase 10: ``serve_jobs_federated`` on full-width yi-6b (phase 8's
+    weights), 3 runtimes on cuda:0 sharing one copy of the weights, the
+    same 64 jobs at standard priority and the same tenants, three runs:
+    no faults (exact launch counts over the three dispatcher threads, and
+    the generated tokens held against a serial re-run of the same padded
+    prompt batches on the default stream), runtime r1 killed once half
+    the jobs are done, and the chaos plan of seed 0 over 2 s."""
+    from repro_torch import telemetry as telemetry_mod
+    from repro_torch.chaos import FaultPlan
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.tenancy import TenantRegistry
+    registry = TenantRegistry.parse(TENANTS)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tel = telemetry_mod.Telemetry()
+    eng = _recording_engine(cfg, params, dev, tel)
+    added = torch.cuda.memory_allocated() - base
+    log(f"federated engine built: {added} bytes of device memory added "
+        f"(one weight copy is {weight_bytes} bytes)")
+    if added >= weight_bytes:
+        raise AssertionError("the federated engine copied the weights")
+    kw = dict(runtimes=3, slo_delay_s=SLO_ADMIT_ALL_S, batch_jobs=8,
+              pipeline_depth=2, tenants=registry, timeout_s=300.0)
+
+    # run 1: no faults
+    jobs = _jobs(registry, "standard")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    frep = eng.serve_jobs_federated(jobs, **kw)
+    counts = _launches()
+    torch.cuda.synchronize()
+    chunks = _chunks_counted(tel)
+    out = _fed_out(frep)
+    peak_added = out["max_memory_allocated"] - base
+    out.update(chunks=chunks, launches=counts, peak_added=peak_added)
+    log("federated report, no faults (yi-6b, 3 runtimes): "
+        + json.dumps(out))
+    if not frep.drained or out["jobs"] != JOBS or out["done"] != JOBS \
+            or any(j.state.value != "done" for j in jobs):
+        raise AssertionError(f"federated run incomplete: {out}")
+    if len(eng.fetched) != chunks:
+        raise AssertionError(f"fetched {len(eng.fetched)} chunks, counted "
+                             f"{chunks}")
+    _expect_launches(counts, chunks, cfg.n_layers)
+    if peak_added >= weight_bytes:
+        raise AssertionError(f"three runtimes added {peak_added} bytes at "
+                             f"peak: more than one weight copy")
+    serial, equal, total = {}, 0, 0
+    for prompts, toks in eng.fetched:
+        key = prompts.tobytes()
+        if key not in serial:
+            serial[key] = _greedy(cfg, params, prompts, eng.max_len)
+        equal += int((serial[key] == toks).sum())
+        total += toks.size
+    agree = equal / total
+    log(f"federated tokens against a serial re-run of the same "
+        f"{len(serial)} distinct padded prompt batches on the default "
+        f"stream: {equal} of {total} equal ({agree:.4f}; need >= 0.9)")
+    if agree < 0.9:
+        raise AssertionError(f"federated tokens agree {agree}")
+
+    # run 2: the kill drill
+    jobs = _jobs(registry, "standard")
+    torch.cuda.reset_peak_memory_stats()
+    frep = eng.serve_jobs_federated(jobs, kill_runtime=1,
+                                    kill_after_frac=0.5, **kw)
+    torch.cuda.synchronize()
+    out = _fed_out(frep)
+    log("federated report, r1 killed at half the jobs: " + json.dumps(out))
+    # the federation's own count, by job id: the survivor re-materializes
+    # the victim's jobs, so the submitted objects of those stay RUNNING
+    if not frep.drained or out["jobs"] != JOBS or out["done"] != JOBS \
+            or out["failovers"] != 1:
+        raise AssertionError(f"kill drill: {out}")
+    if any(int(t.abs().sum()) for t in FD._counters.values()):
+        raise AssertionError("a split-merge ticket was left set")
+
+    # run 3: the chaos plan of seed 0
+    jobs = _jobs(registry, "standard")
+    plan = FaultPlan.generate(0, 2.0, ["r0", "r1", "r2"],
+                              ["r0/accel", "r1/accel", "r2/accel"])
+    log(f"chaos plan (seed 0, 2 s): {plan.to_json()}")
+    torch.cuda.reset_peak_memory_stats()
+    frep = eng.serve_jobs_federated(jobs, chaos_seed=0, chaos_horizon_s=2.0,
+                                    **kw)
+    torch.cuda.synchronize()
+    out = _fed_out(frep)
+    log("federated report, chaos seed 0: " + json.dumps(out))
+    if not frep.drained or out["jobs"] != JOBS \
+            or out["done"] + out["failed"] + out["cancelled"] != JOBS:
+        raise AssertionError(f"chaos run: {out}")
+    return counts
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -764,6 +1047,7 @@ def main():
         dev, cfg, params, {"flash_attention": cfg.n_layers},
         {"flash_decode": cfg.n_layers})
     phase_hetero(dev, main_out)
+    counts["stablelm-1.6b queued"] = phase_queued(dev, cfg, params, smi)
     del params
     free_model()
     cfg, params = full_width_model(dev, "zamba2-1.2b")
@@ -783,6 +1067,7 @@ def main():
         counts[arch], _ = phase_main(
             dev, cfg, params, {"flash_attention": cfg.n_layers},
             {"flash_decode": cfg.n_layers})
+    counts["yi-6b federated"] = phase_federated(dev, cfg, params)
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),

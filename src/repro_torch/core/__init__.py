@@ -2,8 +2,9 @@
 
 Paper: "Reducing overheads of dynamic scheduling on heterogeneous chips"
 (Corbera et al., 2015). The host-side stack (types, throughput tracking,
-partitioner, scheduler, overhead ledger) is the JAX package's, copied with
-its imports rewritten; the executor that drives a device is torch's.
+partitioner, scheduler, overhead ledger, energy model) is the JAX
+package's, copied with its imports rewritten; the executor that drives a
+device is torch's.
 """
 from repro_torch.core.types import (Chunk, ChunkRecord, DeviceKind,
                                     GroupSpec, IterationSpace, Token)
@@ -19,6 +20,7 @@ from repro_torch.core.dispatch import (CallableExecutor, ChunkExecutor,
                                        try_boost_priority)
 from repro_torch.core.scheduler import (DynamicScheduler, EpochHandle,
                                         ScheduleResult)
+from repro_torch.core.energy import EnergyModel, EnergyReport, PowerSpec
 
 __all__ = [
     "Chunk", "ChunkRecord", "DeviceKind", "GroupSpec", "IterationSpace",
@@ -26,5 +28,6 @@ __all__ = [
     "GroupStats", "HeterogeneousPartitioner", "OverheadLedger",
     "OverheadTotals", "CallableExecutor", "ChunkExecutor", "ChunkFailure",
     "TorchChunkExecutor", "SleepExecutor", "try_boost_priority",
-    "DynamicScheduler", "EpochHandle", "ScheduleResult",
+    "DynamicScheduler", "EpochHandle", "ScheduleResult", "EnergyModel",
+    "EnergyReport", "PowerSpec",
 ]

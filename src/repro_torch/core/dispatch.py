@@ -305,6 +305,13 @@ class TorchChunkExecutor(ChunkExecutor):
         return out
 
     def abort(self) -> List[Chunk]:
+        """Drop the in-flight chunks unfetched and return them for
+        requeue; their kernels may still be queued on the stream. Dropping
+        their tensors there is safe: every one was allocated on this
+        executor's stream, and the caching allocator hands a freed block
+        only to later work on the same stream, which runs after the
+        dropped kernels; a pinned staging buffer is reused only once the
+        event its copy recorded has passed."""
         chunks = self._lost_chunks
         chunks += [rec.token.chunk for rec, *_ in self._inflight]
         self._lost_chunks = []

@@ -487,6 +487,13 @@ class DynamicScheduler:
                                              - self._epoch_base].finalized:
                         idx += 1
                 self._worker_pos[name] = idx
+                # a priority jump can carry this worker past an open epoch
+                # it never re-enters; once every worker is past one whose
+                # work is done, nothing else would finalize it
+                for h in self._epochs:
+                    if h.index >= idx:
+                        break
+                    self._maybe_finalize_locked(h)
                 if idx - self._epoch_base < len(self._epochs):
                     epoch = self._epochs[idx - self._epoch_base]
                     if epoch.started_at is None:

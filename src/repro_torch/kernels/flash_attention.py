@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -26,6 +27,7 @@ from repro_torch.kernels._checks import (HEAD_DIMS, check_attention_sizes,
 NEG_INF = -1e30
 #: kernel launches made by flash_attention() (the CUDA route only)
 launches = 0
+_launches_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -111,5 +113,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    with _launches_lock:        # exact under concurrent callers
+        launches += 1
     return out

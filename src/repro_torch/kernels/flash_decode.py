@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -42,6 +43,7 @@ MIN_SPLIT_ROWS = 16 * TILE_ROWS
 MAX_SPLIT = 64
 #: kernel launches made by flash_decode() (the CUDA route only)
 launches = 0
+_launches_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: (device index, stream) -> the split merge's int32 tickets, one per
@@ -220,5 +222,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if rc:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    with _launches_lock:        # exact under concurrent callers
+        launches += 1
     return out

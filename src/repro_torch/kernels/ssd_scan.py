@@ -23,6 +23,7 @@ and raises on anything it does not take; for CPU tensors it computes
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +39,7 @@ SHAPES = ((16, 8), (64, 64))
 MAX_CHUNK = 128
 #: kernel launches made by ssd_scan() (the CUDA route only)
 launches = 0
+_launches_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -191,5 +193,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.device.index, stream.cuda_stream)
     if rc:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    launches += 1
+    with _launches_lock:        # exact under concurrent callers
+        launches += 1
     return y, state

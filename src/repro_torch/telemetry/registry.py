@@ -247,6 +247,35 @@ class Histogram(_Metric):
         }
 
 
+class LabeledRegistry:
+    """View over a base registry stamping constant labels (e.g.
+    ``runtime="r0"``) onto every metric it creates. N federated runtimes
+    share one process registry; without the stamp their ``svc.*`` /
+    scheduler families would interleave indistinguishably in snapshots,
+    Prometheus text, and the JSONL feed. The stamped labels win on
+    collision (a runtime cannot relabel itself per call site). Everything
+    else — collectors, snapshot, metrics — delegates to the base, so one
+    exporter drains every runtime's view."""
+
+    def __init__(self, base: "MetricsRegistry", labels: Dict[str, Any]):
+        self.base = base
+        self.labels = {k: str(v) for k, v in labels.items()}
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self.base.counter(name, **{**labels, **self.labels})
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self.base.gauge(name, **{**labels, **self.labels})
+
+    def histogram(self, name: str, growth: Optional[float] = None,
+                  **labels) -> Histogram:
+        return self.base.histogram(name, growth=growth,
+                                   **{**labels, **self.labels})
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+
 class MetricsRegistry:
     """Get-or-create metric factory + merge-on-snapshot reader."""
 

@@ -194,3 +194,44 @@ class SpanTracer:
             json.dump(trace, fh)
             fh.write("\n")
         return len(trace["traceEvents"])
+
+
+class LabeledTracer:
+    """View over a base tracer namespacing one runtime's trace state.
+
+    Track ids gain a ``<prefix>/`` path (each runtime's service /
+    admission rows become separate Chrome-trace tracks) and epoch-tag
+    keys are scoped to the prefix: N federated runtimes each count their
+    epochs from 0, so raw integer keys would collide in the shared tag
+    map and stamp one runtime's tenant composition onto another's chunk
+    spans. Chunk tids need no prefix — federated group names are already
+    namespaced (``r0/accel``) and flow through the ChunkRecord. Reader
+    surface (``chrome_trace``, ``emitted``, ...) delegates to the base:
+    one export covers every runtime."""
+
+    def __init__(self, base: SpanTracer, prefix: str):
+        self.base = base
+        self.prefix = str(prefix)
+
+    def _epoch_key(self, index) -> Optional[str]:
+        return None if index is None else f"{self.prefix}:{index}"
+
+    def chunk(self, rec, epoch=None) -> None:
+        self.base.chunk(rec, epoch=self._epoch_key(epoch))
+
+    def tag_epoch(self, index, tags: Dict[str, Any]) -> None:
+        self.base.tag_epoch(self._epoch_key(index), tags)
+
+    def epoch_tag(self, index) -> Dict[str, Any]:
+        return self.base.epoch_tag(self._epoch_key(index))
+
+    def span(self, name: str, tid: str, start: float, end: float,
+             **args) -> None:
+        self.base.span(name, f"{self.prefix}/{tid}", start, end, **args)
+
+    def instant(self, name: str, tid: str = "events",
+                ts: Optional[float] = None, **args) -> None:
+        self.base.instant(name, f"{self.prefix}/{tid}", ts=ts, **args)
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)

@@ -191,3 +191,158 @@ def test_ssd_scan_kernel_matches_plain():
         for got, exp in ((y.float(), ey.float()), (state, estate)):
             err = (got - exp).abs().max().item()
             assert err <= 2e-2 * exp.abs().max().item(), (b, s, g, err)
+
+
+@pytest.mark.gpu
+def test_flash_decode_from_four_threads_counts_exactly():
+    """Four threads, each on a stream of its own, call the split-KV
+    flash-decode (n_split 4) at once, as four federated dispatchers do:
+    ``launches`` counts every call, each output equals a serial call on
+    the default stream bit for bit (the merge sums the splits in a fixed
+    order), and the merge leaves every stream's tickets at zero."""
+    import threading
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, S, h, kvh, d, calls = 8, 1024, 32, 4, 128, 200
+    inputs = []
+    for _ in range(4):
+        q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+        kc, vc = (torch.randn(b, S, kvh, d, generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        kv_len = torch.randint(1, S + 1, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        inputs.append((q, kc, vc, kv_len))
+    serial = [FD.flash_decode(*args, n_split=4) for args in inputs]
+    torch.cuda.synchronize()
+    outs = [None] * 4
+    errors = []
+    barrier = threading.Barrier(4)
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            barrier.wait()
+            with torch.cuda.stream(stream):
+                for _ in range(calls):
+                    outs[i] = FD.flash_decode(*inputs[i], n_split=4)
+            stream.synchronize()
+        except BaseException as e:      # surfaced below
+            errors.append(e)
+
+    before = FD.launches
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert FD.launches - before == 4 * calls
+    for got, exp in zip(outs, serial):
+        torch.testing.assert_close(got, exp, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in FD._counters.values())
+
+
+@pytest.mark.gpu
+def test_executor_abort_with_chunks_in_flight_then_reuse():
+    """A TorchChunkExecutor three chunks deep aborts while its chunks are
+    still queued on its stream (each starts with a ~0.3 s spin kernel):
+    none is fetched, abort hands all three back for requeue. Their
+    outputs are dropped under the running kernels; new chunks then run on
+    the same stream, and each result equals the same step run on the
+    default stream, so no memory a queued kernel still wrote was handed to
+    a later chunk."""
+    from repro_torch.core import (Chunk, ChunkRecord, DeviceKind, Token,
+                                  TorchChunkExecutor)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn(2048, 2048, generator=gen, device=dev).bfloat16() / 45
+    spin = [True]
+
+    def step(x):
+        if spin[0]:
+            torch.cuda._sleep(500_000_000)      # ~0.3 s of device time
+        x = x.bfloat16()
+        for _ in range(16):
+            x = torch.tanh(x @ w)
+        return x.sum(-1)
+
+    def make_inputs(token):
+        rng = torch.Generator().manual_seed(token.chunk.begin)
+        return torch.randn(256, 2048, generator=rng).numpy()
+
+    fetched = []
+
+    def fetch(outs):
+        fetched.append(outs.cpu())
+        return {"sum": fetched[-1]}
+
+    def run(ex, begin):
+        token = Token(Chunk(begin, begin + 1, begin), "accel",
+                      DeviceKind.ACCEL)
+        return ex.execute(token, ChunkRecord(token))
+
+    ex = TorchChunkExecutor(step, make_inputs, fetch, device=dev,
+                            async_depth=4)
+    spin[0] = False                 # warm-up: cuBLAS on the stream, and
+    for begin in range(3):          # the pinned staging pool
+        run(ex, begin)
+    ex.drain()
+    fetched.clear()
+    spin[0] = True
+    for begin in range(3):
+        assert run(ex, begin) == []
+    assert not ex._inflight[0][2].query()       # still queued
+    lost = ex.abort()
+    assert sorted(c.begin for c in lost) == [0, 1, 2]
+    assert fetched == [] and not ex._inflight
+    spin[0] = False
+    for begin in range(3, 6):
+        run(ex, begin)
+    done = ex.drain()
+    assert [r.token.chunk.begin for r in done] == [3, 4, 5]
+    for rec in done:
+        x = torch.as_tensor(make_inputs(rec.token)).to(dev)
+        torch.testing.assert_close(rec.meta["result"]["sum"],
+                                   step(x).cpu(), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_serve_jobs_federated_two_runtimes_on_the_card():
+    """``serve_jobs_federated`` with 2 runtimes on cuda:0, reduced
+    stablelm-1.6b in bf16: every job done, both runtimes served, and the
+    kernels' launch counts equal the chunks the run counted (one
+    flash-attention call a layer per prefill, one flash-decode call a
+    layer per decode step)."""
+    from repro_torch import telemetry as telemetry_mod
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.core import DeviceKind
+    from repro_torch.queue import Job
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced_config("stablelm-1.6b")
+    assert cfg.dtype == "bfloat16"
+    tel = telemetry_mod.Telemetry()
+    eng = HeteroServeEngine(
+        cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=4,
+                       async_depth=2)],
+        prompt_len=32, decode_tokens=4, telemetry=tel)
+    jobs = [Job(items=1, tenant=("a", "b")[i % 2]) for i in range(24)]
+    fa0, fd0 = FA.launches, FD.launches
+    rep = eng.serve_jobs_federated(jobs, runtimes=2, batch_jobs=4,
+                                   timeout_s=120.0)
+    assert rep.drained
+    assert rep.fed.done == 24 and rep.fed.failed == 0
+    assert all(j.state.value == "done" for j in jobs)
+    chunks = sum(v for k, v in tel.registry.snapshot()["counters"].items()
+                 if k.startswith("sched.chunks"))
+    assert chunks >= 24 // 4
+    assert FA.launches - fa0 == chunks * cfg.n_layers
+    assert FD.launches - fd0 == chunks * cfg.n_layers * 3

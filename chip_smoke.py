@@ -12,8 +12,9 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. each kernel against its plain PyTorch version on the card, in bf16 at
    the serving paths' shapes (K1 at each model's prefill: main, ragged,
-   gqa, d96, gqa8_d128; K2 at each model's decode: main, ragged, gqa, d96,
-   gqa8_d128, b1; K3 at zamba2's): max abs error and tolerance, two times per
+   gqa, d96, gqa8_d128, gqa2; K2 at each model's decode: main, ragged, gqa,
+   d96, gqa8_d128, b1, gqa2; K3 at zamba2's): max abs error and tolerance,
+   two times per
    call (``ms``: the device alone, many calls captured in one CUDA graph
    and replayed between CUDA events; ``back_to_back_ms``: the same calls
    issued from Python, so the wrapper's host cost is in it), the bound
@@ -65,7 +66,23 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    exact over the three dispatcher threads, generated tokens held
    against a serial re-run on the default stream), with runtime r1
    killed at half the jobs (one failover, every job done, every split
-   ticket back at zero), and under the chaos plan of seed 0.
+   ticket back at zero), and under the chaos plan of seed 0;
+11. the MoE family: granite-moe-1b-a400m (24 layers, 32 experts top-8,
+   16 query heads on 8 kv heads of 64) at full width with random weights
+   from a torch.Generator seeded with 0, cut to 2 layers, and
+   phi3.5-moe-42b-a6.6b (16 experts top-2, 32 query heads on 8 kv heads
+   of 128) at full width with weights for its first 2 layers only: the
+   kernels against their plain versions on the kernel run's routing
+   (``phase_reference_moe``), with the share of routing picks a free run
+   flips; then phase 4's main path on granite-moe-1b with 24
+   flash-attention launches per prefill and 24 flash-decode launches per
+   decode step, and the time of one chunk's prefill and decode step;
+12. the xLSTM family: xlstm-350m (12 pairs of an mLSTM block, heads of
+   512, and an sLSTM block, heads of 256) at full width with random
+   weights from a torch.Generator seeded with 0, cut to its first pair:
+   bf16 and fp32 on the card against the CPU (``phase_reference_xlstm``);
+   then phase 4's main path with no launch of any kernel, and the time of
+   one chunk's prefill and decode step.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -233,13 +250,15 @@ def phase_kernels(dev):
             .to(torch.bfloat16)
 
     rows = {"flash_attention": {"shapes": {}}, "flash_decode": {"shapes": {}}}
-    # K1 at the prefill shapes of the four served models (b=8), causal
+    # K1 at the prefill shapes of the five attention models served (b=8),
+    # causal
     fa_err = 0.0
     for name, sq, h, kvh, d in [("main", 512, 32, 32, 64),
                                 ("ragged", 1000, 32, 32, 64),
                                 ("gqa", 512, 32, 8, 64),
                                 ("d96", 656, 32, 32, 96),
-                                ("gqa8_d128", 512, 32, 4, 128)]:
+                                ("gqa8_d128", 512, 32, 4, 128),
+                                ("gqa2", 512, 16, 8, 64)]:
         b = 8
         q, k, v = rnd(b, sq, h, d), rnd(b, sq, kvh, d), rnd(b, sq, kvh, d)
         out = FA.flash_attention(q, k, v, causal=True)
@@ -278,7 +297,8 @@ def phase_kernels(dev):
                                      ("gqa", 8, 32, 8, 64, None),
                                      ("d96", 8, 32, 32, 96, 664),
                                      ("gqa8_d128", 8, 32, 4, 128, 520),
-                                     ("b1", 1, 32, 32, 64, 520)]:
+                                     ("b1", 1, 32, 32, 64, 520),
+                                     ("gqa2", 8, 16, 8, 64, 520)]:
         S = 1024
         q, kc, vc = rnd(b, 1, h, d), rnd(b, S, kvh, d), rnd(b, S, kvh, d)
         if lens is not None:
@@ -510,7 +530,6 @@ def phase_reference(dev, cfg, params):
     softmax amplifies from layer to layer: tolerance max |dlogit| <=
     5e-2 * max |logit|. A model with a modality prefix (phi-3-vision)
     gets random prefix embeddings, as the engine feeds it."""
-    from repro_torch.models import model as M
     cfg2 = cfg.replace(n_layers=2)
     params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
     gen = torch.Generator().manual_seed(2)
@@ -521,26 +540,13 @@ def phase_reference(dev, cfg, params):
         prefix = (torch.randn(2, cfg.prefix_len, cfg.d_model, generator=gen)
                   * 0.02).to(dev)
     max_len = 128 + cfg.prefix_len
-
-    def run():
-        out = []
-        with torch.no_grad():
-            logits, cache = M.prefill(cfg2, params2, tokens, prefix,
-                                      max_len=max_len)
-            out.append(logits.float())
-            for _ in range(4):
-                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-                logits, cache = M.decode_step(cfg2, params2, cache, tok)
-                out.append(logits.float())
-        return torch.stack(out)
-
     _zero_launches()
-    got = run()
+    got, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_decode": 8, "ssd_scan": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     with plain_kernels():
-        ref = run()
+        ref, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
     if not torch.isfinite(got).all():
         raise AssertionError("non-finite logits through the kernels")
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
@@ -661,6 +667,43 @@ def hybrid_cut(cfg, params, n_layers):
         cfg.hybrid, attn_every=n_layers + 1)), cut
 
 
+class no_tf32:
+    """Within the block, fp32 matmuls and convolutions run in fp32, not
+    TF32 (the fp32 reference runs)."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def greedy_run(cfg, params, prompt, max_len, forced=None, prefix=None):
+    """Prefill ``prompt`` (after the modality ``prefix`` rows, if any)
+    and 4 greedy decode steps, each fed its own greedy token or, given
+    ``forced`` (5, b), the one of that step. Returns the 5 stacked logits
+    (fp32) and the 5 greedy tokens."""
+    from repro_torch.models import model as M
+    prompt = prompt.to(params["embed"].device)
+    out, toks = [], []
+    with torch.no_grad():
+        logits, cache = M.prefill(cfg, params, prompt, prefix,
+                                  max_len=max_len)
+        for step in range(5):
+            out.append(logits.float())
+            toks.append(logits[:, -1].argmax(-1).to(torch.int32))
+            if step < 4:
+                feed = toks[-1] if forced is None else \
+                    forced[step].to(prompt.device)
+                logits, cache = M.decode_step(cfg, params, cache,
+                                              feed[:, None])
+    return torch.stack(out), torch.stack(toks)
+
+
 def hybrid_runs(dev, cfg, params, n_layers):
     """A 300-token prompt (b=2; two whole SSD chunks and a ragged third)
     and 4 greedy decode steps on ``hybrid_cut(n_layers)``, three ways: bf16
@@ -669,40 +712,58 @@ def hybrid_runs(dev, cfg, params, n_layers):
     second and third runs are fed the first run's greedy tokens, so every
     step compares like with like. Returns the three stacked logits, the
     kernel run's launch counts and each run's greedy tokens."""
-    from repro_torch.models import model as M
     cfg_n, params_n = hybrid_cut(cfg, params, n_layers)
     gen = torch.Generator().manual_seed(3)
     prompt = torch.randint(0, cfg.vocab, (2, 300), generator=gen,
                            dtype=torch.int32).to(dev)
-
-    def run(c, p, forced=None):
-        out, toks = [], []
-        with torch.no_grad():
-            logits, cache = M.prefill(c, p, prompt, max_len=512)
-            for step in range(5):
-                out.append(logits.float())
-                toks.append(logits[:, -1].argmax(-1).to(torch.int32))
-                if step < 4:
-                    feed = toks[-1] if forced is None else forced[step]
-                    logits, cache = M.decode_step(c, p, cache, feed[:, None])
-        return torch.stack(out), torch.stack(toks)
-
     _zero_launches()
-    got, toks = run(cfg_n, params_n)
+    got, toks = greedy_run(cfg_n, params_n, prompt, 512)
     counts = _launches()
-    tf32 = torch.backends.cuda.matmul.allow_tf32, \
-        torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with plain_kernels():
-            plain, plain_toks = run(cfg_n, params_n, toks)
-            ref, ref_toks = run(cfg_n.replace(dtype="float32"),
-                                _map(lambda t: t.float(), params_n), toks)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
+    with no_tf32(), plain_kernels():
+        plain, plain_toks = greedy_run(cfg_n, params_n, prompt, 512, toks)
+        ref, ref_toks = greedy_run(cfg_n.replace(dtype="float32"),
+                                   _map(lambda t: t.float(), params_n),
+                                   prompt, 512, toks)
     return (got, plain, ref), counts, (toks, plain_toks, ref_toks)
+
+
+class routing:
+    """Within the block, every MoE layer's router call (``moe._route``)
+    is recorded in call order in ``self.calls``: (probs, gates, picked
+    experts). Given ``replay``, another run's record, each call returns
+    that run's gates and picks for the same call instead of its own."""
+
+    def __init__(self, replay=None):
+        self.replay, self.calls = replay, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.saved = moe, moe._route
+
+        def route(cfg, p, xf):
+            probs, gates, picks = self.saved(cfg, p, xf)
+            if self.replay is not None:
+                _, gates, picks = self.replay[len(self.calls)]
+            self.calls.append((probs, gates, picks))
+            return probs, gates, picks
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.saved
+
+
+def picks_differing(a, b) -> float:
+    """Share of the (token, expert) picks of record ``a`` that record
+    ``b`` did not make, over every router call of the two runs."""
+    diff = total = 0
+    for (probs, _, pa), (_, _, pb) in zip(a, b, strict=True):
+        ma = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, pa, True)
+        mb = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, pb, True)
+        diff += int((ma & ~mb).sum())
+        total += int(ma.sum())
+    return diff / max(total, 1)
 
 
 def rel_err(a, b):
@@ -740,6 +801,172 @@ def phase_reference_hybrid(dev, cfg, params):
     if not err_k <= 1.5 * err_p:
         raise AssertionError(f"full-width hybrid logits off: {err_k} from "
                              f"fp32 against the plain bf16 run's {err_p}")
+
+
+def first_layers(dev, arch, n_layers):
+    """``arch`` at full width with weights for its first ``n_layers``
+    layers only (bf16, a torch.Generator seeded with 0). Stacked block
+    weights are drawn with the full-depth model's stddev: the init takes
+    fan-in from the leading (layer) axis (ROADMAP, "Fan-in of stacked
+    weights"), so a 2-layer config drawn as such would get weights
+    sqrt(full depth / 2) times larger than the model's first 2 layers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_from_defs
+    cfg = get_config(arch)
+    cut = cfg.replace(n_layers=n_layers)
+    defs = M.param_defs(cut)
+    shrink = math.sqrt(n_layers / cfg.n_layers)
+    defs["blocks"] = _map(lambda d: d._replace(scale=d.scale * shrink),
+                          defs["blocks"])
+    t0 = time.perf_counter()
+    params = init_from_defs(defs, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{arch}: {n_params} parameters for its first {n_layers} of "
+        f"{cfg.n_layers} layers in {cfg.dtype}, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cut, params
+
+
+def phase_reference_moe(dev, cfg, params):
+    """Phase 11's reference check: the MoE model at full width cut to 2
+    layers (the first 2 of ``params``' blocks), a 64-token prompt (b=2)
+    and 4 greedy decode steps; launches 2 of K1 and 8 of K2. The kernel
+    run records its routing. Its plain-version run in bf16 is held against
+    it as phase 3 holds the dense models, max |dlogit| <= 5e-2 * max
+    |logit|, replaying the kernel run's routing (gates and picked
+    experts). A pick flipped at a near-tie between two experts'
+    probabilities, a discrete event that bf16 noise anywhere upstream can
+    trigger, moves a token's output by a whole expert's share; on these
+    random weights (stacked block weights of stddev 1/sqrt(layers),
+    ROADMAP) expert outputs are large against the residual, so no bf16
+    tolerance covers a flip. The flips are counted instead: a free-running
+    plain bf16 run gives the share of picks that differ and its logits'
+    distance, and an fp32 run (replaying the routing too) the bf16 runs'
+    drift from fp32."""
+    cfg2 = cfg.replace(n_layers=2)
+    params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                           dtype=torch.int32).to(dev)
+    _zero_launches()
+    with routing() as rec:
+        got, toks = greedy_run(cfg2, params2, prompt, 128)
+    counts = _launches()
+    if counts != {"flash_attention": 2, "flash_decode": 8, "ssd_scan": 0}:
+        raise AssertionError(f"the reference check's launches: {counts}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits through the kernels")
+    with no_tf32(), plain_kernels():
+        with routing() as free:
+            free_plain, _ = greedy_run(cfg2, params2, prompt, 128, toks)
+        with routing(rec.calls):
+            plain, _ = greedy_run(cfg2, params2, prompt, 128, toks)
+        with routing(rec.calls):
+            ref, ref_toks = greedy_run(
+                cfg2.replace(dtype="float32"),
+                _map(lambda t: t.float(), params2), prompt, 128, toks)
+    rel = rel_err(got, plain)
+    n_picks = sum(int(c[2].numel()) for c in rec.calls)
+    log(f"reference check ({cfg.arch_id} widths, 2 layers, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, b=2, prompt 64, "
+        f"4 decode steps, bf16): launches {json.dumps(counts)}; kernels vs "
+        f"plain versions on the kernel run's routing: max |dlogit| / max "
+        f"|logit| = {rel:.3e} (tol 5e-2); routing picks of a free plain "
+        f"run differing from the kernel run's: "
+        f"{picks_differing(rec.calls, free.calls):.4f} of {n_picks}, its "
+        f"logits {rel_err(got, free_plain):.3e} from the kernel run's; from "
+        f"the fp32 run on the same routing: kernels {rel_err(got, ref):.3e},"
+        f" plain {rel_err(plain, ref):.3e}; greedy tokens equal to the fp32"
+        f" run's {(toks == ref_toks).float().mean().item():.3f}")
+    if rel > 5e-2:
+        raise AssertionError(f"full-width MoE logits off: max rel err {rel}")
+
+
+def phase_reference_xlstm(dev, cfg, params):
+    """Phase 12's reference check: xlstm-350m at full width cut to its
+    first pair (one mLSTM and one sLSTM block of the main path's weights),
+    a 300-token prompt (b=2; two whole mLSTM chunks of 128 and a padded
+    third) and 4 greedy decode steps, each run fed the card's bf16 run's
+    tokens. No kernel is on this path: all three counts must be 0.
+
+    - bf16 against fp32 on the card (weights cast up, TF32 off): the two
+      differ by bf16 rounding alone, which random weights amplify by an
+      amount that depends on the draw. So, as phase 6 holds zamba2, the
+      card's bf16 run may be no farther from the fp32 run than 1.5 times
+      the CPU's bf16 run of the same code on the same weights and inputs.
+    - fp32 on the card against fp32 on the CPU (whose path
+      tests/test_torch_xlstm.py holds against the JAX package): the same
+      arithmetic in other summation orders and exp and log routines. fp32
+      rounds 2^15 times finer than bf16, so the bf16 run's drift (logged,
+      ~1e-2 of max |logit|) scaled down is ~3e-7; the bound, max |dlogit|
+      <= 1e-4 * max |logit|, leaves room for reduction orders and
+      transcendental routines to add 300 times that."""
+    n = cfg.xlstm.slstm_every
+    cfg1 = cfg.replace(n_layers=n)
+    params1 = dict(params, m=_map(lambda t: t[:1], params["m"]),
+                   s=_map(lambda t: t[:1], params["s"]))
+    gen = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab, (2, 300), generator=gen,
+                           dtype=torch.int32)
+    cfg32 = cfg1.replace(dtype="float32")
+    _zero_launches()
+    got, toks = greedy_run(cfg1, params1, prompt.to(dev), 512)
+    counts = _launches()
+    if any(counts.values()):
+        raise AssertionError(f"a kernel ran on the xLSTM path: {counts}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite xLSTM logits")
+    cpu = torch.device("cpu")
+    with no_tf32():
+        ref, ref_toks = greedy_run(cfg32, _map(lambda t: t.float(), params1),
+                                   prompt, 512, toks)
+        p_cpu = _map(lambda t: t.to(cpu), params1)
+        cpu_bf16, _ = greedy_run(cfg1, p_cpu, prompt, 512, toks)
+        cpu_fp32, _ = greedy_run(cfg32, _map(lambda t: t.float(), p_cpu),
+                                 prompt, 512, toks)
+    ref = ref.cpu()
+    err, err_cpu = rel_err(got.cpu(), ref), rel_err(cpu_bf16, ref)
+    err32 = rel_err(ref, cpu_fp32)
+    log(f"reference check (xlstm-350m widths, 1 pair = {n} layers, b=2, "
+        f"prompt 300, 4 decode steps): launches {json.dumps(counts)}; max "
+        f"|dlogit| / max |logit| from the card's fp32 run: card bf16 "
+        f"{err:.3e}, CPU bf16 {err_cpu:.3e} (tol: card <= 1.5 x CPU = "
+        f"{1.5 * err_cpu:.3e}); card fp32 vs CPU fp32 {err32:.3e} (tol "
+        f"1e-4); greedy tokens equal to the fp32 run's "
+        f"{(toks == ref_toks).float().mean().item():.3f}")
+    if not err <= 1.5 * err_cpu:
+        raise AssertionError(f"xLSTM bf16 on the card {err} from fp32, "
+                             f"against the CPU's {err_cpu}")
+    if not err32 <= 1e-4:
+        raise AssertionError(f"xLSTM fp32 on the card off the CPU's: {err32}")
+
+
+def one_chunk_times(dev, cfg, params, max_len):
+    """The model's split of one main-path chunk (8 prompts of 512 tokens):
+    the wall time of its prefill and of its 15 decode steps, each ended
+    by a synchronise; the second of two runs is kept."""
+    from repro_torch.models import model as M
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (8, 512), generator=gen,
+                           dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(cfg, params, tokens, max_len=max_len)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(15):
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                logits, cache = M.decode_step(cfg, params, cache, tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    log(f"one chunk ({cfg.arch_id}, 8 x 512 prompt tokens, 15 decode "
+        f"steps): " + json.dumps({"prefill_s": t1 - t0,
+                                   "decode_step_s": (t2 - t1) / 15}))
 
 
 def _map(fn, tree):
@@ -1068,6 +1295,26 @@ def main():
             dev, cfg, params, {"flash_attention": cfg.n_layers},
             {"flash_decode": cfg.n_layers})
     counts["yi-6b federated"] = phase_federated(dev, cfg, params)
+    # phase 11: the MoE family
+    del params
+    free_model()
+    cfg, params = full_width_model(dev, "granite-moe-1b-a400m")
+    phase_reference_moe(dev, cfg, params)
+    phi_cfg, phi_params = first_layers(dev, "phi3.5-moe-42b-a6.6b", 2)
+    phase_reference_moe(dev, phi_cfg, phi_params)
+    del phi_params
+    free_model()
+    counts[cfg.arch_id], out = phase_main(
+        dev, cfg, params, {"flash_attention": cfg.n_layers},
+        {"flash_decode": cfg.n_layers})
+    one_chunk_times(dev, cfg, params, out["max_len"])
+    # phase 12: the xLSTM family, on no kernel
+    del params
+    free_model()
+    cfg, params = full_width_model(dev, "xlstm-350m")
+    phase_reference_xlstm(dev, cfg, params)
+    counts[cfg.arch_id], out = phase_main(dev, cfg, params, {}, {})
+    one_chunk_times(dev, cfg, params, out["max_len"])
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),

@@ -1,2 +1,3 @@
 """Model path in torch: layers, attention (eager CPU path and the CUDA
-kernels' dispatch), the dense transformer and the family dispatch."""
+kernels' dispatch), the transformer (dense and MoE FFNs), the recurrent
+blocks (Mamba-2, xLSTM), the hybrid, and the family dispatch."""

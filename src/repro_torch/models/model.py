@@ -1,49 +1,142 @@
 """Unified model API over the architecture families (torch counterpart of
-``repro.models.model``), for the families this port runs:
+``repro.models.model``), for serving:
 
     defs   = param_defs(cfg)                       # ParamDef tree
     params = init_params(cfg, generator, device)
     logits, cache = prefill(cfg, params, tokens, prefix_emb, max_len=...)
     logits, cache = decode_step(cfg, params, cache, tokens)
     cache  = init_cache(cfg, batch, max_len, device)
+
+The cache is allocated once, in ``prefill``, and decode steps update its
+states in place.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import hybrid as hyb
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import init_from_defs
+from repro_torch.models.layers import (ParamDef, init_from_defs, norm,
+                                       norm_defs)
 
-#: the attention families, served by ``transformer``; ``hybrid`` (zamba2)
-#: is served by ``hybrid``; ``moe`` and ``ssm`` are queued
-ATTN_FAMILIES = ("dense", "vlm", "audio")
-
-_NOT_PORTED = {
-    "moe": "MoE FFN (ROADMAP.md, queue A item 8)",
-    "ssm": "xLSTM (ROADMAP.md, queue A item 10)",
-}
+#: the attention families, served by ``transformer``; ``ssm`` (xLSTM) is
+#: assembled here, ``hybrid`` (zamba2) is served by ``hybrid``
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
-def _module(cfg: LMConfig):
-    if cfg.family in ATTN_FAMILIES:
-        return tfm
-    if cfg.family == "hybrid":
-        return hyb
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}")
-    raise ValueError(cfg.family)
+# ---------------------------------------------------------------------------
+# xLSTM model assembly (blocks live in models/ssm.py)
+# ---------------------------------------------------------------------------
 
+def _xlstm_layout(cfg: LMConfig):
+    every = cfg.xlstm.slstm_every
+    assert cfg.n_layers % every == 0, (cfg.n_layers, every)
+    return cfg.n_layers // every, every - 1   # (n_pairs, mlstm_per_pair)
+
+
+def _xlstm_defs(cfg: LMConfig) -> Dict:
+    n_pairs, n_m = _xlstm_layout(cfg)
+    return {
+        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                          scale=cfg.d_model ** 0.5, dtype=cfg.dtype),
+        "m": tfm.stacked(tfm.stacked(ssm_lib.mlstm_defs(cfg), n_m), n_pairs),
+        "s": tfm.stacked(ssm_lib.slstm_defs(cfg), n_pairs),
+        "final_norm": norm_defs(cfg.d_model, cfg.norm_type),
+        "unembed": ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                            dtype=cfg.dtype),
+    }
+
+
+def _xlstm_init_cache(cfg: LMConfig, batch: int, max_len: int,
+                      device) -> Dict[str, torch.Tensor]:
+    """The recurrent states (fp32; the stabilisers ``mm`` and ``sm`` at
+    -inf) and ``pos``. ``max_len`` is unused: the state does not grow."""
+    n_pairs, n_m = _xlstm_layout(cfg)
+    _, nh, dh = ssm_lib.xlstm_dims(cfg)
+    dh_s = cfg.d_model // cfg.n_heads
+
+    def mk(shape, fill=0.0, dtype=torch.float32):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    s_shape = (n_pairs, batch, cfg.n_heads, dh_s)
+    return {
+        "mC": mk((n_pairs, n_m, batch, nh, dh, dh)),
+        "mn": mk((n_pairs, n_m, batch, nh, dh)),
+        "mm": mk((n_pairs, n_m, batch, nh), -torch.inf),
+        "sc": mk(s_shape), "sn": mk(s_shape), "sh": mk(s_shape),
+        "sm": mk(s_shape, -torch.inf),
+        "pos": mk((batch,), 0, torch.int32),
+    }
+
+
+_M_STATE, _S_STATE = ("mC", "mn", "mm"), ("sc", "sn", "sh", "sm")
+
+
+def _store(cache: Dict, keys, index, state) -> None:
+    for key, t in zip(keys, state):
+        cache[key][index].copy_(t)
+
+
+def _xlstm_prefill(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
+                   prefix_emb=None, max_len=None):
+    x, _ = tfm.embed_tokens(cfg, params, tokens, prefix_emb)
+    b, s = x.shape[0], x.shape[1]
+    n_pairs, n_m = _xlstm_layout(cfg)
+    cache = _xlstm_init_cache(cfg, b, max_len or s, x.device)
+    for pi in range(n_pairs):
+        mp = tfm.layer_params(params["m"], pi)
+        for mi in range(n_m):
+            x, st = ssm_lib.mlstm_block_fwd(cfg, tfm.layer_params(mp, mi), x,
+                                            return_state=True)
+            _store(cache, _M_STATE, (pi, mi), st)
+        x, st = ssm_lib.slstm_block_fwd(
+            cfg, tfm.layer_params(params["s"], pi), x, return_state=True)
+        _store(cache, _S_STATE, pi, st)
+    x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    cache["pos"].fill_(s)
+    return tfm.logits_fwd(cfg, params, x[:, -1:, :]), cache
+
+
+def _xlstm_decode(cfg: LMConfig, params: Dict, cache: Dict,
+                  tokens: torch.Tensor):
+    """One decode step: each block's new state is copied into the cache
+    in place and ``pos`` advanced in place (the JAX version returns a new
+    cache)."""
+    x = F.embedding(tokens, params["embed"])             # (b, 1, d)
+    n_pairs, n_m = _xlstm_layout(cfg)
+    for pi in range(n_pairs):
+        mp = tfm.layer_params(params["m"], pi)
+        for mi in range(n_m):
+            x, st = ssm_lib.mlstm_decode_step(
+                cfg, tfm.layer_params(mp, mi), x,
+                tuple(cache[key][pi, mi] for key in _M_STATE))
+            _store(cache, _M_STATE, (pi, mi), st)
+        x, st = ssm_lib.slstm_decode_step(
+            cfg, tfm.layer_params(params["s"], pi), x,
+            tuple(cache[key][pi] for key in _S_STATE))
+        _store(cache, _S_STATE, pi, st)
+    x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    cache["pos"].add_(1)
+    return tfm.logits_fwd(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
 
 def param_defs(cfg: LMConfig) -> Dict:
-    if _module(cfg) is hyb:
+    if cfg.family in ATTN_FAMILIES:
+        return tfm.transformer_defs(cfg)
+    if cfg.family == "ssm":
+        return _xlstm_defs(cfg)
+    if cfg.family == "hybrid":
         return hyb.hybrid_defs(cfg)
-    return tfm.transformer_defs(cfg)
+    raise ValueError(cfg.family)
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator, device) -> Dict:
@@ -54,12 +147,30 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device) -> Dict:
 
 
 def prefill(cfg: LMConfig, params, tokens, prefix_emb=None, max_len=None):
-    return _module(cfg).prefill(cfg, params, tokens, prefix_emb, max_len)
+    if cfg.family in ATTN_FAMILIES:
+        return tfm.prefill(cfg, params, tokens, prefix_emb, max_len)
+    if cfg.family == "ssm":
+        return _xlstm_prefill(cfg, params, tokens, prefix_emb, max_len)
+    if cfg.family == "hybrid":
+        return hyb.prefill(cfg, params, tokens, prefix_emb, max_len)
+    raise ValueError(cfg.family)
 
 
 def decode_step(cfg: LMConfig, params, cache, tokens):
-    return _module(cfg).decode_step(cfg, params, cache, tokens)
+    if cfg.family in ATTN_FAMILIES:
+        return tfm.decode_step(cfg, params, cache, tokens)
+    if cfg.family == "ssm":
+        return _xlstm_decode(cfg, params, cache, tokens)
+    if cfg.family == "hybrid":
+        return hyb.decode_step(cfg, params, cache, tokens)
+    raise ValueError(cfg.family)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
-    return _module(cfg).init_cache(cfg, batch, max_len, device)
+    if cfg.family in ATTN_FAMILIES:
+        return tfm.init_cache(cfg, batch, max_len, device)
+    if cfg.family == "ssm":
+        return _xlstm_init_cache(cfg, batch, max_len, device)
+    if cfg.family == "hybrid":
+        return hyb.init_cache(cfg, batch, max_len, device)
+    raise ValueError(cfg.family)

@@ -1,5 +1,5 @@
-"""Mamba-2 (SSD) blocks: torch counterpart of the Mamba-2 half of
-``repro.models.ssm``.
+"""State-space / recurrent blocks: torch counterpart of
+``repro.models.ssm``, Mamba-2 (SSD) and xLSTM (mLSTM + sLSTM).
 
 The chunked SSD scan is ``repro_torch.kernels.ssd_scan``: for CUDA tensors
 the hand-written kernel, for CPU tensors its plain version, which follows
@@ -7,10 +7,16 @@ the JAX package's ``ssd_scan`` step for step. The tensors' device decides,
 and a CUDA tensor never takes the plain path. ``mamba2_decode_step`` is a
 one-token recurrence (the JAX package has no kernel for it) and updates
 the state and the conv window in place, so no step synchronises the host.
-The xLSTM half is not ported yet (ROADMAP.md, queue A item 10).
+
+The xLSTM cells are plain torch, as they are plain JAX in the reference
+(no Pallas kernel): the mLSTM in the stabilised chunkwise-parallel form,
+a Python loop over chunks carrying the running-max stabiliser; the sLSTM
+as a time scan, one step per token, issued eagerly. Their functions
+return new states; the model writes them into its cache.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -18,7 +24,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, norm_defs, rmsnorm
+from repro_torch.models.layers import (ParamDef, mlp_defs, mlp_fwd,
+                                       norm_defs, rmsnorm)
+
+NEG_INF = -1e30
 
 
 def mamba2_dims(cfg: LMConfig):
@@ -155,3 +164,228 @@ def mamba2_decode_step(cfg: LMConfig, p: Dict, x: torch.Tensor,
     out = x + y @ p["out_proj"]
     conv_buf.copy_(win[:, 1:])
     return out, state, conv_buf
+
+
+# ===========================================================================
+# xLSTM: mLSTM (chunkwise parallel) + sLSTM (time scan)
+# ===========================================================================
+
+def xlstm_dims(cfg: LMConfig):
+    x = cfg.xlstm
+    di = x.proj_factor_m * cfg.d_model
+    nh = cfg.n_heads
+    return di, nh, di // nh
+
+
+def mlstm_defs(cfg: LMConfig) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    di, nh, dh = xlstm_dims(cfg)
+    dt = cfg.dtype
+    return {
+        "pre_norm": norm_defs(d, "rmsnorm"),
+        "up": ParamDef((d, 2 * di), ("embed", "ssm_inner"), dtype=dt),
+        "wq": ParamDef((di, di), ("ssm_inner", None), dtype=dt),
+        "wk": ParamDef((di, di), ("ssm_inner", None), dtype=dt),
+        "wv": ParamDef((di, di), ("ssm_inner", None), dtype=dt),
+        "wif": ParamDef((di, 2 * nh), ("ssm_inner", None), dtype="float32"),
+        "norm": ParamDef((di,), ("ssm_inner",), init="ones", dtype="float32"),
+        "down": ParamDef((di, d), ("ssm_inner", "embed"), dtype=dt),
+    }
+
+
+def _headwise_rmsnorm(y: torch.Tensor, w: torch.Tensor, nh: int,
+                      eps: float) -> torch.Tensor:
+    b, s, di = y.shape
+    yf = y.reshape(b, s, nh, di // nh).float()
+    var = yf.square().mean(-1, keepdim=True)
+    yn = (yf * torch.rsqrt(var + eps)).reshape(b, s, di)
+    return (yn * w.float()).to(y.dtype)
+
+
+def mlstm_chunkwise(q, k, v, li, lf, chunk: int, init=None):
+    """Stabilised chunkwise mLSTM.
+
+    q/k/v: (b, s, nh, dh); li/lf: (b, s, nh) fp32 log input/forget gates;
+    init: (C (b, nh, dh, dh), n (b, nh, dh), m (b, nh)) fp32 or None.
+    Returns (h (b, s, nh, dh), (C, n, m) final states)."""
+    b, s, nh, dh = q.shape
+    L = min(chunk, s)
+    s0 = s
+    pad = (-s) % L
+    if pad:
+        # li = NEG_INF (no write) and lf = 0 (no decay) on the padded steps
+        # keep the final (C, n, m) equal to the state at s0 (NEG_INF is
+        # finite, as in the reference)
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        li = F.pad(li, (0, 0, 0, pad), value=NEG_INF)
+        lf = F.pad(lf, (0, 0, 0, pad))
+        s += pad
+    nc = s // L
+    k = k / math.sqrt(dh)
+    qc, kc, vc = (t.reshape(b, nc, L, nh, dh) for t in (q, k, v))
+    lic = li.reshape(b, nc, L, nh)
+    Fc = lf.reshape(b, nc, L, nh).cumsum(2)                   # inclusive
+    Ftot = Fc[:, :, -1, :]                                     # (b, nc, nh)
+    gvec = Ftot[:, :, None, :] - Fc + lic                      # (b, nc, L, nh)
+    # intra-chunk decay D_ij = F_i - F_j + li_j for j <= i
+    Dm = Fc[:, :, :, None, :] - Fc[:, :, None, :, :] + lic[:, :, None, :, :]
+    tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    Dm = Dm.masked_fill(~tri[None, None, :, :, None], NEG_INF)
+    # an fp32 product of the bf16 q and k, as the reference's
+    # preferred_element_type: cast up before the product, since a bf16
+    # matmul would round its output
+    scores = torch.einsum("bclhd,bcmhd->bclmh", qc.float(), kc.float())
+
+    if init is None:
+        C = torch.zeros(b, nh, dh, dh, dtype=torch.float32, device=q.device)
+        n = torch.zeros(b, nh, dh, dtype=torch.float32, device=q.device)
+        m = torch.full((b, nh), -math.inf, dtype=torch.float32,
+                       device=q.device)
+    else:
+        C, n, m = init
+    hs = []
+    for c in range(nc):
+        F_c, Ftot_c, g_c = Fc[:, c], Ftot[:, c], gvec[:, c]
+        qf, k_c, vf = qc[:, c].float(), kc[:, c], vc[:, c].float()
+        # with m = -inf (no state yet) a is -inf and w_inter exp(-inf) = 0
+        a = F_c + m[:, None, :]                                # (b, L, nh)
+        m_i = torch.maximum(Dm[:, c].amax(2), a)               # (b, L, nh)
+        w_inter = torch.exp(a - m_i)
+        ws = torch.exp(Dm[:, c] - m_i[:, :, None, :]) * scores[:, c]
+        num = w_inter[..., None] * torch.einsum("blhd,bhde->blhe", qf, C) \
+            + torch.einsum("blmh,bmhe->blhe", ws, vf)
+        den = w_inter * torch.einsum("blhd,bhd->blh", qf, n) + ws.sum(2)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None])
+        # state update to the end of the chunk
+        m_new = torch.maximum(m + Ftot_c, g_c.amax(1))         # (b, nh)
+        sc_old = torch.exp(m + Ftot_c - m_new)
+        kw = k_c * torch.exp(g_c - m_new[:, None, :])[..., None]   # fp32
+        C = C * sc_old[..., None, None] \
+            + torch.einsum("blhd,blhe->bhde", kw, vf)
+        n = n * sc_old[..., None] + kw.sum(1)
+        m = m_new
+    h = torch.stack(hs, 1).reshape(b, s, nh, dh)[:, :s0]
+    return h.to(q.dtype), (C, n, m)
+
+
+def _mlstm_in(cfg: LMConfig, p: Dict, x: torch.Tensor):
+    """The mLSTM block's projections: (q, k, v (b, s, nh, dh), fp32 log
+    gates li, lf (b, s, nh), the output gate's input z (b, s, di))."""
+    di, nh, dh = xlstm_dims(cfg)
+    b, s, _ = x.shape
+    h = rmsnorm(x, p["pre_norm"]["scale"], cfg.norm_eps)
+    xi, z = (h @ p["up"]).chunk(2, dim=-1)
+    q, k, v = ((xi @ p[w]).view(b, s, nh, dh) for w in ("wq", "wk", "wv"))
+    li, lfr = (xi.float() @ p["wif"]).chunk(2, dim=-1)         # (b, s, nh)
+    lf = F.logsigmoid(lfr + 3.0)                               # forget bias +3
+    return q, k, v, li, lf, z
+
+
+def _mlstm_out(cfg: LMConfig, p: Dict, x: torch.Tensor, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    di, nh, _ = xlstm_dims(cfg)
+    b, s, _ = x.shape
+    y = y.reshape(b, s, di) * F.silu(z)
+    y = _headwise_rmsnorm(y, p["norm"], nh, cfg.norm_eps)
+    return x + y @ p["down"]
+
+
+def mlstm_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor, init=None,
+                    return_state: bool = False):
+    q, k, v, li, lf, z = _mlstm_in(cfg, p, x)
+    y, state = mlstm_chunkwise(q, k, v, li, lf, cfg.xlstm.chunk_size, init)
+    out = _mlstm_out(cfg, p, x, y, z)
+    if return_state:
+        return out, state
+    return out
+
+
+def mlstm_decode_step(cfg: LMConfig, p: Dict, x: torch.Tensor, state):
+    """One-token mLSTM step. x: (b, 1, d); state (C, n, m) fp32. Returns
+    (out, new state)."""
+    _, _, dh = xlstm_dims(cfg)
+    C, n, m = state
+    q, k, v, li, lf, z = _mlstm_in(cfg, p, x)
+    qf, vf = q[:, 0].float(), v[:, 0].float()
+    kf = (k[:, 0] / math.sqrt(dh)).float()                     # (b, nh, dh)
+    li, lf = li[:, 0], lf[:, 0]                                # (b, nh)
+    m_new = torch.maximum(lf + m, li)
+    iw = torch.exp(li - m_new)
+    fw = torch.exp(lf + m - m_new)
+    C = C * fw[..., None, None] \
+        + iw[..., None, None] * (kf[..., :, None] * vf[..., None, :])
+    n = n * fw[..., None] + iw[..., None] * kf
+    num = torch.einsum("bhd,bhde->bhe", qf, C)
+    den = (qf * n).sum(-1)
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return _mlstm_out(cfg, p, x, y.to(x.dtype), z), (C, n, m_new)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_defs(cfg: LMConfig) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    nh = cfg.n_heads
+    dh = d // nh
+    ff = cfg.xlstm.ff_factor_s * d
+    dt = cfg.dtype
+    return {
+        "pre_norm": norm_defs(d, "rmsnorm"),
+        "W": ParamDef((d, 4 * d), ("embed", "ssm_inner"), dtype="float32"),
+        "R": ParamDef((nh, dh, 4 * dh), ("ssm_heads", None, None),
+                      scale=0.5, dtype="float32"),
+        "b": ParamDef((4 * d,), ("ssm_inner",), init="zeros", dtype="float32"),
+        "ffn_norm": norm_defs(d, "rmsnorm"),
+        "ffn": mlp_defs(d, ff, True, dt),
+    }
+
+
+def slstm_cell_scan(cfg: LMConfig, p: Dict, x: torch.Tensor, init=None):
+    """x: (b, s, d). Sequential exponential-gated sLSTM over the s steps;
+    init: (c, n, h, m) each (b, nh, dh) fp32, or None. Returns (y (b, s,
+    d), final (c, n, h, m))."""
+    b, s, d = x.shape
+    nh = cfg.n_heads
+    dh = d // nh
+    pre = (x.float() @ p["W"] + p["b"]).view(b, s, nh, 4 * dh)
+    if init is None:
+        zeros = torch.zeros(b, nh, dh, dtype=torch.float32, device=x.device)
+        init = (zeros, zeros + 1e-6, zeros,
+                torch.full_like(zeros, -math.inf))
+    c, n, h, m = init
+    ys = []
+    for t in range(s):
+        u = pre[:, t] + torch.einsum("bhd,hdk->bhk", h, p["R"])
+        i_r, f_r, z_r, o_r = u.chunk(4, dim=-1)
+        lf = F.logsigmoid(f_r + 3.0)
+        # with m = -inf (no state yet) fw is exp(-inf) = 0
+        m_new = torch.maximum(lf + m, i_r)
+        iw = torch.exp(i_r - m_new)
+        fw = torch.exp(lf + m - m_new)
+        c = fw * c + iw * torch.tanh(z_r)
+        n = fw * n + iw
+        h = torch.sigmoid(o_r) * c / n.clamp_min(1e-6)
+        m = m_new
+        ys.append(h)
+    y = torch.stack(ys, 1).reshape(b, s, d)
+    return y.to(x.dtype), (c, n, h, m)
+
+
+def slstm_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor, init=None,
+                    return_state: bool = False):
+    h = rmsnorm(x, p["pre_norm"]["scale"], cfg.norm_eps)
+    y, state = slstm_cell_scan(cfg, p, h, init)
+    x = x + y
+    h = rmsnorm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
+    x = x + mlp_fwd(p["ffn"], h, "silu", True)
+    if return_state:
+        return x, state
+    return x
+
+
+def slstm_decode_step(cfg: LMConfig, p: Dict, x: torch.Tensor, state):
+    """One-token sLSTM block: the block forward seeded with ``state``.
+    Returns (out, new state)."""
+    return slstm_block_fwd(cfg, p, x, state, return_state=True)

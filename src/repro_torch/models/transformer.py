@@ -1,4 +1,4 @@
-"""Decoder-only transformer backbone (dense / vlm / audio families).
+"""Decoder-only transformer backbone (dense / vlm / audio / moe families).
 
 Torch counterpart of ``repro.models.transformer``. Parameters keep the JAX
 package's pytree: per-layer weights are stacked along a leading ``layers``
@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           group_query_heads, ungroup_heads)
 from repro_torch.models.layers import (ParamDef, apply_rope, mlp_defs,
@@ -37,15 +38,16 @@ def attn_defs(cfg: LMConfig) -> Dict[str, ParamDef]:
 
 
 def block_defs(cfg: LMConfig) -> Dict:
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md, queue A item 8)")
-    return {
+    out = {
         "attn": attn_defs(cfg),
         "attn_norm": norm_defs(cfg.d_model, cfg.norm_type),
         "mlp_norm": norm_defs(cfg.d_model, cfg.norm_type),
-        "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.dtype),
     }
+    if cfg.moe:
+        out["moe"] = moe_lib.moe_defs(cfg)
+    else:
+        out["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.dtype)
+    return out
 
 
 def stacked(defs, n: int):
@@ -112,7 +114,11 @@ def _attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The FFN sublayer with its residual. Serving only: the MoE aux loss
+    is dropped, as the reference's prefill and decode_step drop it."""
     h = norm(x, p["mlp_norm"], cfg.norm_type, cfg.norm_eps)
+    if cfg.moe:
+        return x + moe_lib.moe_fwd(cfg, p["moe"], h)[0]
     return x + mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp)
 
 

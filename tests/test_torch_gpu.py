@@ -346,3 +346,34 @@ def test_serve_jobs_federated_two_runtimes_on_the_card():
     assert chunks >= 24 // 4
     assert FA.launches - fa0 == chunks * cfg.n_layers
     assert FD.launches - fd0 == chunks * cfg.n_layers * 3
+
+
+@pytest.mark.gpu
+def test_moe_fwd_on_the_card_matches_the_cpu_and_repeats_its_bits():
+    """``moe_fwd`` on reduced granite-moe in bf16 (4 experts, top-2; 3 x 40
+    tokens for a capacity of 80, so experts overflow): the card against
+    the CPU on the same bf16 weights and inputs within 2e-2 (the bf16
+    tolerance; the router runs in fp32 on both, TF32 off, so both pick the
+    same experts), the aux loss within 1e-5; and two runs on the card give
+    the same bits: the fp32 combine writes each kept (token, expert) row
+    once and sums a token's rows in a fixed order."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import init_from_defs
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced_config("granite-moe-1b-a400m")
+    assert cfg.dtype == "bfloat16"
+    gen = torch.Generator().manual_seed(0)
+    p = init_from_defs(MOE.moe_defs(cfg), gen, "cpu")
+    x = (torch.randn(3, 40, cfg.d_model, generator=gen)
+         + 1.5 * torch.randn(cfg.d_model, generator=gen)).bfloat16()
+    out_cpu, aux_cpu = MOE.moe_fwd(cfg, p, x)
+    p_dev = {k: v.to(dev) for k, v in p.items()}
+    out1, aux1 = MOE.moe_fwd(cfg, p_dev, x.to(dev))
+    out2, aux2 = MOE.moe_fwd(cfg, p_dev, x.to(dev))
+    assert torch.equal(out1, out2) and torch.equal(aux1, aux2)
+    torch.testing.assert_close(out1.float().cpu(), out_cpu.float(),
+                               rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(aux1.cpu(), aux_cpu, rtol=1e-5, atol=1e-5)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import get_config as jax_config
 from repro.configs.registry import get_reduced_config as jax_reduced
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
@@ -174,11 +175,40 @@ def test_bridge_carries_bf16_bits_without_ml_dtypes():
                                   np.asarray(x.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-1b-a400m"])
-def test_unported_families_name_their_roadmap_item(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.param_defs(cfg)
+@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_and_xlstm_params_follow_the_jax_param_defs(arch):
+    """The MoE tree (``moe`` in place of ``mlp`` in every block: an fp32
+    router, experts stacked under the layers) and the xLSTM tree (mLSTM
+    blocks stacked twice, pairs then blocks in a pair; sLSTM blocks once;
+    fp32 gates, recurrences and norms in a bf16 model): the same keys,
+    shapes and dtypes as the JAX package, at full width (abstractly, no
+    weight drawn) and reduced; ``params_from_jax`` carries the reduced
+    tree over with JAX's values."""
+    for flat_t, flat_j in [
+            (_abstract(TM.param_defs(get_config(arch))),
+             dict(_flatten(JM.abstract_params(jax_config(arch))))),
+            (dict(_flatten(TM.init_params(get_reduced_config(arch),
+                                          torch.Generator().manual_seed(0),
+                                          "cpu"))),
+             dict(_flatten(JM.abstract_params(jax_reduced(arch)))))]:
+        assert flat_t.keys() == flat_j.keys()
+        for key, t in flat_t.items():
+            assert tuple(t.shape) == tuple(flat_j[key].shape), key
+            assert str(t.dtype).split(".")[-1] == str(flat_j[key].dtype), key
+    jparams = jax.tree.map(np.asarray, JM.init_params(
+        jax_reduced(arch), jax.random.PRNGKey(1)))
+    flat_j = dict(_flatten(jparams))
+    for key, t in _flatten(params_from_jax(get_reduced_config(arch), jparams,
+                                           "cpu")):
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      flat_j[key].astype(np.float32))
+
+
+def _abstract(defs):
+    """ParamDef leaves as (shape, dtype) stand-ins, flattened."""
+    return {k: torch.empty(d.shape, dtype=getattr(torch, d.dtype),
+                           device="meta") for k, d in _flatten(defs)}
 
 
 @pytest.mark.parametrize("n_layers", [4, 5])
@@ -272,6 +302,7 @@ def test_reduced_stablelm_prefill_and_decode_match_jax():
     "yi-6b",                # RMSNorm, full RoPE
     "musicgen-large",       # plain GELU MLP, learned positions, prefix
     "phi-3-vision-4.2b",    # patch-embedding prefix
+    "granite-moe-1b-a400m", # MoE FFN: 39 prefill tokens for a capacity of 24
 ])
 def test_reduced_attention_families_prefill_and_decode_match_jax(arch):
     """Tolerance 1e-4: the random weights make activations large (|k| up

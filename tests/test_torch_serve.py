@@ -65,6 +65,18 @@ def test_serve_tokens_match_the_jax_engine_on_zamba2():
         get_reduced_config("zamba2-1.2b").replace(dtype="float32"))
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m"])
+def test_serve_tokens_match_the_jax_engine_on_moe_and_xlstm(arch):
+    """The same on reduced granite-moe (2 layers, 4 experts, top-2: a
+    chunk of 4 prompts of 16 tokens is 64 tokens for a capacity of 40) and
+    reduced xlstm-350m (2 pairs of an mLSTM and an sLSTM block; prompts of
+    one whole mLSTM chunk), in fp32. Nothing here is family-specific: the
+    engine serves both unchanged."""
+    _serve_tokens_match_the_jax_engine(
+        jax_reduced(arch).replace(dtype="float32"),
+        get_reduced_config(arch).replace(dtype="float32"))
+
+
 def _serve_tokens_match_the_jax_engine(cfg_j, cfg_t):
     n, prompt_len, decode_tokens = 8, 16, 4
     jeng = JaxServeEngine(
@@ -277,6 +289,17 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 
 def test_launcher_serves_zamba2_on_the_cpu(capsys):
     serve_cli.main(["--arch", "zamba2-1.2b", "--reduced", "--device", "cpu",
+                    "--requests", "4", "--prompt-len", "13",
+                    "--decode-tokens", "3", "--dtype", "float32",
+                    "--groups", "accel:chunk=2:async=2,cpu0"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["requests"] == 4 and out["new_tokens"] == 12
+    assert sum(out["per_group"].values()) == 4
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m"])
+def test_launcher_serves_moe_and_xlstm_on_the_cpu(arch, capsys):
+    serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
                     "--requests", "4", "--prompt-len", "13",
                     "--decode-tokens", "3", "--dtype", "float32",
                     "--groups", "accel:chunk=2:async=2,cpu0"])

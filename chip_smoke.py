@@ -82,7 +82,38 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    weights from a torch.Generator seeded with 0, cut to its first pair:
    bf16 and fp32 on the card against the CPU (``phase_reference_xlstm``);
    then phase 4's main path with no launch of any kernel, and the time of
-   one chunk's prefill and decode step.
+   one chunk's prefill and decode step;
+13. training, with the serving models freed:
+   a. flash-attention writing its row log-sum-exp L at phase 2's shapes
+      main, gqa, d96, gqa8_d128 and gqa2: L against the plain version's,
+      the output with L bit for bit the output without it, the device
+      time with and without L;
+   b. the attention backward: ``FlashAttentionFn`` forward and backward
+      in bf16 at stablelm's training shape (b 8, S 512, H 32, D 64) and
+      at gqa8_d128, dq/dk/dv against autograd through the plain version in
+      fp32, timed (on the device alone, in a CUDA graph, and back to
+      back), and beside it ``F.scaled_dot_product_attention`` forward and
+      backward (timed only);
+   c. stablelm-1.6b at full width cut to 2 layers, its block matrices at
+      fan-in scale: one ``grad_step`` through the kernels in bf16 against
+      the same step with the plain versions in their place, in bf16 and
+      in fp32, leaf by leaf: the kernels' run within 5e-2 of the plain
+      bf16 run and no farther from fp32 than 1.5 times the plain bf16
+      run's;
+   d. the training main path: ``HeteroTrainer`` on full-width
+      stablelm-1.6b (24 layers, random weights from a torch.Generator
+      seeded with 0), group ``accel:chunk=8:async=2`` on cuda:0, seq_len
+      512, global batch 32 of the same examples, 6 AdamW steps: the loss
+      falls, every step covers 32 examples, flash-attention launches
+      exactly 2 x 24 a chunk (the forward and the recompute) and no other
+      kernel launches; time per step, tokens/s and peak memory, with one
+      synchronise, at the end of the window;
+   f. (run after d, on its weights) the update's ordering: three steps of
+      stablelm-1.6b cut to 2 layers with no synchronise between them give
+      the bits of the same steps synchronised after each;
+   e. the heterogeneous training path on reduced stablelm-1.6b, groups
+      ``accel:chunk=8:async=2`` on cuda:0 and ``cpu0``: every step covers
+      the batch and the loss falls.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -480,21 +511,40 @@ def ssd_rows(dev, gen):
     return row
 
 
+class _PlainAttentionFn:
+    """``FlashAttentionFn``'s plain version: autograd through the plain
+    flash-attention, in the grouped layout, neither the kernel nor the
+    written-out backward."""
+
+    @staticmethod
+    def apply(q, k, v, causal, q_chunk, kv_chunk):
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+        b, sq, g, m, hd = q.shape
+        o = flash_attention_plain(q.reshape(b, sq, g * m, hd), k, v,
+                                  causal=causal)
+        return o.view(b, sq, g, m, hd)
+
+
 class plain_kernels:
     """Within the block, the model calls the kernels' plain versions
-    instead of the kernels (the reference runs of phases 3 and 6)."""
+    instead of the kernels, and trains through ``_PlainAttentionFn``
+    instead of ``FlashAttentionFn`` (the reference runs of phases 3, 6 and
+    13c)."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
         from repro_torch.kernels.flash_attention import flash_attention_plain
         from repro_torch.kernels.flash_decode import flash_decode_plain
         from repro_torch.kernels.ssd_scan import ssd_scan_plain
-        self.ops = ops
+        from repro_torch.models import transformer
+        self.ops, self.tfm = ops, transformer
         self.saved = (ops.attention_bshd, ops.decode_attention_bshd,
-                      ops.ssd_bshn)
+                      ops.ssd_bshn, transformer.FlashAttentionFn)
+        transformer.FlashAttentionFn = _PlainAttentionFn
         ops.attention_bshd = lambda q, k, v, n_heads, n_kv_heads, causal, \
-            q_offset: flash_attention_plain(q, k, v, causal=causal,
-                                            q_offset=q_offset)
+            q_offset=0, return_lse=False: flash_attention_plain(
+                q, k, v, causal=causal, q_offset=q_offset,
+                return_lse=return_lse)
         ops.decode_attention_bshd = lambda q, kc, vc, kv_len, n_heads, \
             n_kv_heads: flash_decode_plain(q, kc, vc, kv_len)
         ops.ssd_bshn = lambda x, dt, A, B, C, chunk, init_state: \
@@ -503,7 +553,7 @@ class plain_kernels:
 
     def __exit__(self, *exc):
         (self.ops.attention_bshd, self.ops.decode_attention_bshd,
-         self.ops.ssd_bshn) = self.saved
+         self.ops.ssd_bshn, self.tfm.FlashAttentionFn) = self.saved
 
 
 def _launches():
@@ -1262,6 +1312,342 @@ def phase_federated(dev, cfg, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+#: the training main path: six AdamW steps on one repeated global batch,
+#: a peak rate high enough for the loss to fall in six, one warmup step,
+#: the cosine over the six
+TRAIN_OC = dict(lr=1e-3, warmup_steps=1, total_steps=6)
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 512, 32
+#: L against the plain version's fp32 logsumexp, as torch.allclose: both
+#: sum fp32 exponentials of the same fp32 products
+LSE_TOL = 1e-4
+#: the bf16 attention backward against fp32 autograd, max |diff| over the
+#: reference's max |value|: bf16 rounds o, do and each gradient
+BWD_TOL = 2e-2
+#: 13c, each leaf's bf16 gradient through the kernels against the same step
+#: with the plain versions in bf16, max |diff| over the plain max |value|
+TRAIN_GRAD_TOL = 5e-2
+
+
+def phase_lse(dev):
+    """13a: K1 asked for its row log-sum-exp at phase 2's shapes."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for name, sq, h, kvh, d in [("main", 512, 32, 32, 64),
+                                ("gqa", 512, 32, 8, 64),
+                                ("d96", 656, 32, 32, 96),
+                                ("gqa8_d128", 512, 32, 4, 128),
+                                ("gqa2", 512, 16, 8, 64)]:
+        b = 8
+        q, k, v = (torch.randn(b, sq, n, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+        out = FA.flash_attention(q, k, v, causal=True)
+        out_l, lse = FA.flash_attention(q, k, v, causal=True,
+                                        return_lse=True)
+        _, lse_ref = FA.flash_attention_plain(q, k, v, causal=True,
+                                              return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_l):
+            raise AssertionError(f"flash_attention {name}: the output with "
+                                 f"L differs from the output without it")
+        err = (lse - lse_ref).abs().max().item()
+        if not torch.allclose(lse, lse_ref, rtol=LSE_TOL, atol=LSE_TOL):
+            raise AssertionError(f"flash_attention {name}: L max abs err "
+                                 f"{err}")
+        ms = graph_ms(lambda: FA.flash_attention(q, k, v, causal=True), 50)
+        ms_l = graph_ms(lambda: FA.flash_attention(
+            q, k, v, causal=True, return_lse=True), 50)
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d) \
+            + 4 * b * h * sq
+        flops = 4 * b * h * d * (sq * (sq + 1) // 2)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"flash_attention with L {name}: b={b} S={sq} H={h} KVH={kvh} "
+            f"D={d} L max_abs_err={err:.3e} (tol |diff| <= {LSE_TOL} + "
+            f"{LSE_TOL} |plain|), output bit-equal without L; ms with "
+            f"L={ms_l:.4f} without={ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        rows[name] = dict(ms=ms_l, ms_without_lse=ms, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=err)
+    return rows
+
+
+def phase_attention_backward(dev):
+    """13b: FlashAttentionFn forward + backward in bf16 against autograd
+    through the plain version in fp32, and its time beside SDPA's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import (FlashAttentionFn,
+                                              group_query_heads)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = {}
+    for name, h, kvh, d in [("stablelm", 32, 32, 64),
+                            ("gqa8_d128", 32, 4, 128)]:
+        b, S = 8, 512
+        q, k, v, do = (torch.randn(b, S, n, d, generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in (h, kvh, kvh, h))
+
+        def fwd_bwd():
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            o = FlashAttentionFn.apply(group_query_heads(qg, kvh), kg, vg,
+                                       True, 512, 1024)
+            return (o.reshape(b, S, h, d),) + torch.autograd.grad(
+                o, (qg, kg, vg), group_query_heads(do, kvh))
+
+        def plain_fwd_bwd():
+            qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+            o = FA.flash_attention_plain(qf, kf, vf, causal=True)
+            return (o,) + torch.autograd.grad(o, (qf, kf, vf), do.float())
+
+        def sdpa_fwd_bwd():
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=h != kvh)
+            return torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
+
+        got = fwd_bwd()
+        with no_tf32():
+            ref = plain_fwd_bwd()
+        errs = {n: rel_err(g.float(), r)
+                for n, g, r in zip(("o", "dq", "dk", "dv"), got, ref)}
+        del got, ref
+        if not max(errs.values()) <= BWD_TOL:
+            raise AssertionError(f"attention backward {name}: {errs}")
+        ms, b2b_ms = times(fwd_bwd, 5)
+        with no_tf32():
+            plain_ms = cuda_ms(plain_fwd_bwd, 3)
+        lib_ms, lib_b2b_ms = times(sdpa_fwd_bwd, 20)
+        # the least work of causal attention forward + backward: two
+        # products forward, five backward, over the causal triangle; q, k,
+        # v read forward and backward, o and L written then read, do read,
+        # dq, dk, dv written
+        q_el, kv_el = b * S * h * d, b * S * kvh * d
+        flops = 7 * 2 * b * h * d * (S * (S + 1) // 2)
+        nbytes = 2 * (2 * (q_el + 2 * kv_el) + 3 * q_el + q_el
+                      + 2 * kv_el) + 2 * 4 * b * h * S
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"attention forward + backward {name}: b={b} S={S} H={h} "
+            f"KVH={kvh} D={d} bf16, max |diff| / max |fp32 autograd|: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tol {BWD_TOL}); ms={ms:.4f} (back to back {b2b_ms:.4f}) "
+            f"plain_fp32_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} (back to "
+            f"back {lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by})")
+        rows[name] = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                          library_ms=lib_ms,
+                          library_back_to_back_ms=lib_b2b_ms,
+                          bound_ms=b_ms, bound_by=b_by, rel_err=errs)
+    return rows
+
+
+def _named_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def _train_batch(dev, cfg, n):
+    from repro_torch.data.pipeline import for_model
+    batch = for_model(cfg, TRAIN_SEQ - cfg.prefix_len, 0).batch(0, n)
+    return {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+
+
+def _fan_in_cut(cfg, params, n_layers):
+    """The first ``n_layers`` of ``params`` with each block matrix scaled to
+    stddev 1/sqrt(d_model). Drawn at the fan-in of its stacked shape
+    (stddev 1/sqrt(n_layers), as the JAX package draws it) a block matrix
+    gives scores of stddev ~85, so attention is all but one-hot and a
+    row's bf16 gradient is the rounding of o in delta = sum(do * o), as
+    large as the gradient itself; at this scale it is not."""
+    f = math.sqrt(cfg.n_layers / cfg.d_model)
+    blocks = _map(lambda t: t[:n_layers] * f if t.dim() >= 3
+                  else t[:n_layers], params["blocks"])
+    return cfg.replace(n_layers=n_layers), dict(params, blocks=blocks)
+
+
+def phase_train_reference(dev, cfg, params):
+    """13c: one grad_step of the model at full width cut to 2 layers
+    (``_fan_in_cut`` of the main path's weights), 4 sequences of 512
+    tokens, through the kernels and ``FlashAttentionFn`` in bf16, against
+    the same step with their plain versions in their place (``plain
+    kernels``: the attention's backward is autograd's) in bf16, and in
+    fp32 (TF32 off). Each leaf's gradient through the kernels within TRAIN_GRAD_TOL of
+    the plain bf16 one and at most 1.5 times as far from the fp32 one as
+    the plain bf16 one (max |diff| / max |reference|); the loss within
+    1e-3 of the fp32 loss, relative (bf16 logits, averaged over 2,048
+    tokens)."""
+    from repro_torch.train.train_step import grad_step
+    cfg2, params2 = _fan_in_cut(cfg, params, 2)
+    batch = _train_batch(dev, cfg, 4)
+    _zero_launches()
+    got, m_got = grad_step(cfg2, params2, batch)
+    counts = _launches()
+    if counts != {"flash_attention": 4, "flash_decode": 0, "ssd_scan": 0}:
+        raise AssertionError(f"the training reference check's launches: "
+                             f"{counts}")
+    with plain_kernels():
+        plain, m_plain = grad_step(cfg2, params2, batch)
+        with no_tf32():
+            ref, m_ref = grad_step(cfg2.replace(dtype="float32"),
+                                   _map(lambda t: t.float(), params2), batch)
+    dist = {}
+    for (name, g), (_, p), (_, r) in zip(_named_leaves(got),
+                                         _named_leaves(plain),
+                                         _named_leaves(ref)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite gradient {name}")
+        dist[name] = {"kernels_plain": rel_err(g.float(), p.float()),
+                      "kernels_fp32": rel_err(g.float(), r),
+                      "plain_fp32": rel_err(p.float(), r)}
+    losses = {k: m["loss"].item() for k, m in
+              (("kernels", m_got), ("plain", m_plain), ("fp32", m_ref))}
+    log(f"training reference check ({cfg.arch_id} widths, 2 layers at "
+        f"fan-in scale, b=4, S={TRAIN_SEQ}): losses {json.dumps(losses)} "
+        f"(tol: kernels within 1e-3 of fp32, relative); gradient max |diff| "
+        f"/ max |reference| per leaf (tol: kernels_plain <= "
+        f"{TRAIN_GRAD_TOL}, kernels_fp32 <= 1.5 x plain_fp32): "
+        + json.dumps(dist))
+    off = [n for n, d in dist.items()
+           if not (d["kernels_plain"] <= TRAIN_GRAD_TOL
+                   and d["kernels_fp32"] <= 1.5 * d["plain_fp32"])]
+    if off or not abs(losses["kernels"] - losses["fp32"]) \
+            <= 1e-3 * abs(losses["fp32"]):
+        raise AssertionError(f"training step off: leaves {off}, losses "
+                             f"{losses}")
+    return {"losses": losses, "grad_rel_dist": dist}
+
+
+def phase_train_ordering(dev, cfg, params):
+    """13f: the weight update and the next step's chunks run on two
+    streams, ordered by an event and not by the host. Three steps of the
+    model cut to 2 layers, with no synchronise between them, give the same
+    losses and weights, bit for bit, as the same steps with a synchronise
+    after each."""
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    cfg2 = cfg.replace(n_layers=2)
+    params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
+
+    def run(sync):
+        tr = HeteroTrainer(
+            cfg2, [GroupDef("accel", DeviceKind.ACCEL, device=dev,
+                            fixed_chunk=4, async_depth=2)],
+            seq_len=256, global_batch=8,
+            oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3),
+            repeat_data=True, params=_map(torch.clone, params2))
+        losses = []
+        for _ in range(3):
+            losses.append(tr.train_step().loss)
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return losses, _leaves(tr.params)
+
+    loss_sync, w_sync = run(True)
+    loss_free, w_free = run(False)
+    same = [torch.equal(a, b) for a, b in zip(w_free, w_sync)]
+    log(f"training step ordering ({cfg.arch_id} widths, 2 layers, 3 steps): "
+        f"losses synchronised {loss_sync}, not {loss_free}; "
+        f"{sum(same)} of {len(same)} weight leaves bit-equal")
+    if loss_free != loss_sync or not all(same):
+        raise AssertionError("steps without a host synchronise differ from "
+                             "the synchronised ones")
+
+
+def phase_train_main(dev, cfg, params):
+    """13d: the training main path on ``params`` (full-width stablelm)."""
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2)]
+    tr = HeteroTrainer(cfg, groups, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, oc=OptConfig(**TRAIN_OC),
+                       seed=0, repeat_data=True, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    steps = []
+    start = t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        # no synchronise inside the window: a step's update overlaps the
+        # next step's dispatch, as in any run of the trainer
+        rep = tr.train_step()
+        t1 = time.perf_counter()
+        steps.append({"step": rep.step, "loss": rep.loss,
+                      "examples": rep.examples,
+                      "items": rep.per_group_items, "host_s": t1 - t0,
+                      "sched_s": rep.time_s,
+                      "chunks": rep.overheads["accel"]["n_chunks"]})
+        t0 = t1
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    counts = _launches()
+    chunks = sum(s["chunks"] for s in steps)
+    want = {"flash_attention": chunks * 2 * cfg.n_layers, "flash_decode": 0,
+            "ssd_scan": 0}
+    out = {"steps": steps, "chunks": chunks, "launches": counts,
+           "wall_s": wall_s, "s_per_step": wall_s / TRAIN_STEPS,
+           "tok_per_s": sum(s["examples"] for s in steps) * TRAIN_SEQ
+           / wall_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "opt": TRAIN_OC, "seq_len": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH}
+    log(f"training main path report ({cfg.arch_id}): " + json.dumps(out))
+    del tr
+    if any(s["examples"] != TRAIN_BATCH
+           or sum(s["items"].values()) != TRAIN_BATCH for s in steps):
+        raise AssertionError(f"a step did not cover {TRAIN_BATCH} examples")
+    if not all(math.isfinite(s["loss"]) for s in steps) \
+            or not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: "
+                             f"{[s['loss'] for s in steps]}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    return counts, out
+
+
+def phase_train_hetero(dev):
+    """13e: the heterogeneous training path on reduced stablelm (bf16)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    cfg = reduced(get_config("stablelm-1.6b"))
+    groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2),
+              GroupDef("cpu0", DeviceKind.BIG, device=torch.device("cpu"))]
+    tr = HeteroTrainer(cfg, groups, seq_len=128, global_batch=32,
+                       oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+                       seed=0, repeat_data=True)
+    _zero_launches()
+    reps = tr.train(4)
+    counts = _launches()
+    accel_chunks = sum(r.overheads.get("accel", {}).get("n_chunks", 0)
+                       for r in reps)
+    out = {"losses": [r.loss for r in reps],
+           "examples": [r.examples for r in reps],
+           "items": [r.per_group_items for r in reps],
+           "failed": [r.failed_groups for r in reps], "launches": counts}
+    log("heterogeneous training report (reduced stablelm-1.6b): "
+        + json.dumps(out))
+    if any(r.examples != 32 or sum(r.per_group_items.values()) != 32
+           or r.failed_groups for r in reps):
+        raise AssertionError("work not conserved")
+    if not reps[-1].loss < reps[0].loss:
+        raise AssertionError(f"the loss did not fall: {out['losses']}")
+    if counts != {"flash_attention": accel_chunks * 2 * cfg.n_layers,
+                  "flash_decode": 0, "ssd_scan": 0}:
+        raise AssertionError(f"kernel launches {counts} for {accel_chunks} "
+                             f"accel chunks")
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1315,6 +1701,19 @@ def main():
     phase_reference_xlstm(dev, cfg, params)
     counts[cfg.arch_id], out = phase_main(dev, cfg, params, {}, {})
     one_chunk_times(dev, cfg, params, out["max_len"])
+    # phase 13: training
+    del params
+    free_model()
+    rows["flash_attention"]["lse_shapes"] = phase_lse(dev)
+    rows["flash_attention"]["training_backward"] = \
+        phase_attention_backward(dev)
+    cfg, params = full_width_model(dev, "stablelm-1.6b")
+    phase_train_reference(dev, cfg, params)
+    counts["stablelm-1.6b training"], _ = phase_train_main(dev, cfg, params)
+    phase_train_ordering(dev, cfg, params)
+    del params
+    free_model()
+    phase_train_hetero(dev)
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),
@@ -1338,7 +1737,9 @@ def main():
             "library_back_to_back_ms": r["library_back_to_back_ms"],
             "blocks_per_sm": {k: v for k, v in occ.items()
                               if k.startswith(name)},
-            "shapes": r.get("shapes", {})})
+            "shapes": r.get("shapes", {}),
+            **{k: r[k] for k in ("lse_shapes", "training_backward")
+               if k in r}})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0
                for k in kernels)
     print(json.dumps({"kernels": kernels}))

@@ -39,3 +39,21 @@ def check_cuda_bf16(device: torch.device, **tensors: torch.Tensor) -> None:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
                             f"{t.dtype}")
+
+
+def check_no_grad(kernel: str, **tensors: torch.Tensor) -> None:
+    """A kernel's output has no ``grad_fn``: called with grad enabled on an
+    input that requires grad, it would cut the graph and drop the inputs'
+    gradients without a word, so it raises instead. The training path
+    calls flash-attention from ``FlashAttentionFn``, whose forward runs
+    with grad disabled and whose backward is written out."""
+    if not torch.is_grad_enabled():
+        return
+    needing = [name for name, t in tensors.items()
+               if t is not None and t.requires_grad]
+    if needing:
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, but "
+            f"{', '.join(needing)} require grad; call it under "
+            f"torch.no_grad(), or train through "
+            f"repro_torch.models.attention.FlashAttentionFn")

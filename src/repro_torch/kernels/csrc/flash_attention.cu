@@ -34,7 +34,10 @@
 //   * softmax in base 2: ex2.approx(s * scale * log2(e) - m * scale *
 //     log2(e)), the scale folded into one FMA;
 //   * the output is staged in the warp's own Q rows in shared memory and
-//     stored 16 bytes at a time.
+//     stored 16 bytes at a time;
+//   * when asked (a non-null `lse`), each query row's log-sum-exp L, fp32
+//     (b, h, sq), which the training backward reads (row_lse); with a null
+//     pointer the kernel computes and stores exactly what it did without.
 // D = 64 (flash_attention_wgmma_kernel): two warpgroups share each kv
 //   tile, 64 query rows each (128-row q tiles, 256 threads); S = Q K^T and
 //   O += P V on wgmma.m64n64k16 (see the note above the kernel); tiles in
@@ -125,6 +128,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The row log-sum-exp of the natural-log scores s = q.k * scale, as the
+// backward reads it (repro/models/attention.py _flash_fwd_stats: L = max(s)
+// + ln(l)), from the base-2 running state of unscaled scores: the maximum
+// m and l = sum 2^((q.k - m) * scale_log2) = sum e^(s - m * scale).
+__device__ __forceinline__ float row_lse(float m, float l, float scale_log2) {
+  constexpr float LN2 = 0.6931471805599453f;
+  return (m * scale_log2 + log2f(fmaxf(l, 1e-37f))) * LN2;
+}
+
 // two floats -> one register of two bf16, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -156,7 +168,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 2)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int sq, int skv, int h,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int sq, int skv, int h,
                        int g, long long q_sb, long long q_ss, long long q_sh,
                        long long k_sb, long long k_ss, long long k_sh,
                        long long v_sb, long long v_ss, long long v_sh,
@@ -368,6 +381,17 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(acc[mi][dt][2] * inv1, acc[mi][dt][3] * inv1);
     }
   }
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + warp * WROWS + mi * 16 + grp + hf * 8;
+        if (row < sq)
+          lse[static_cast<long long>(blockIdx.x) * sq + row] =
+              row_lse(m_run[mi][hf], l_run[mi][hf], scale_log2);
+      }
+  }
   __syncwarp();
   const long long o_row = static_cast<long long>(h) * D;
   __nv_bfloat16* ob = o + static_cast<long long>(bi) * sq * o_row + hi * D;
@@ -483,7 +507,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
 flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
-                             __nv_bfloat16* __restrict__ o, int sq, int skv,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int sq, int skv,
                              int h, int g, long long q_sb, long long q_ss,
                              long long q_sh, long long k_sb, long long k_ss,
                              long long k_sh, long long v_sb, long long v_ss,
@@ -640,6 +665,15 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint32_t*>(sQ + sw128(rb, nt) + tig * 4) =
         pack_bf16(acc[4 * nt + 2] * inv1, acc[4 * nt + 3] * inv1);
   }
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = m0 + r0 + grp + hf * 8;
+      if (row < sq)
+        lse[static_cast<long long>(blockIdx.x) * sq + row] =
+            row_lse(m_run[hf], l_run[hf], scale_log2);
+    }
+  }
   __syncwarp();
   const long long o_row = static_cast<long long>(h) * D;
   __nv_bfloat16* ob = o + static_cast<long long>(bi) * sq * o_row + hi * D;
@@ -674,8 +708,8 @@ cudaError_t configure() {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int h, int g, long long q_sb, long long q_ss,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int skv, int h, int g, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh, int q_offset,
            int causal, float scale_log2, cudaStream_t stream) {
@@ -688,14 +722,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if constexpr (D == 64) {
     const dim3 grid(b * h, (sq + WG_BM - 1) / WG_BM);
     flash_attention_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(
-        qp, kp, vp, op, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-        v_sb, v_ss, v_sh, q_offset, causal, scale_log2);
+        qp, kp, vp, op, lse, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb, k_ss,
+        k_sh, v_sb, v_ss, v_sh, q_offset, causal, scale_log2);
   } else {
     const dim3 grid(b * h, (sq + Cfg<D>::BM - 1) / Cfg<D>::BM);
     flash_attention_kernel<D><<<grid, Cfg<D>::THREADS, Cfg<D>::SMEM,
                                 stream>>>(
-        qp, kp, vp, op, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-        v_sb, v_ss, v_sh, q_offset, causal, scale_log2);
+        qp, kp, vp, op, lse, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb, k_ss,
+        k_sh, v_sb, v_ss, v_sh, q_offset, causal, scale_log2);
   }
   return 0;
 }
@@ -718,39 +752,46 @@ int occupancy(int* blocks, int* smem_bytes) {
 }  // namespace
 
 // Strides are in elements; the head dimension is contiguous and every
-// other stride is a multiple of 8 (the wrapper checks both). Returns the
-// launch's cudaGetLastError().
+// other stride is a multiple of 8 (the wrapper checks both). `lse` is null,
+// or fp32 (b, h, sq) contiguous and receives each query row's log-sum-exp
+// (row_lse). Returns the launch's cudaGetLastError().
 extern "C" int repro_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
-    int skv, int h, int g, int d, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int sq, int skv, int h, int g, int d, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int q_offset, int causal,
     float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   const float sl2 = scale * LOG2E;
   int rc;
   switch (d) {
     case 16:
-      rc = launch<16>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
-                      k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
+      rc = launch<16>(q, k, v, o, lse_f, b, sq, skv, h, g, q_sb, q_ss, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal,
+                      sl2, s);
       break;
     case 32:
-      rc = launch<32>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
-                      k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
+      rc = launch<32>(q, k, v, o, lse_f, b, sq, skv, h, g, q_sb, q_ss, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal,
+                      sl2, s);
       break;
     case 64:
-      rc = launch<64>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
-                      k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
+      rc = launch<64>(q, k, v, o, lse_f, b, sq, skv, h, g, q_sb, q_ss, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal,
+                      sl2, s);
       break;
     case 96:
-      rc = launch<96>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
-                      k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
+      rc = launch<96>(q, k, v, o, lse_f, b, sq, skv, h, g, q_sb, q_ss, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal,
+                      sl2, s);
       break;
     case 128:
-      rc = launch<128>(q, k, v, o, b, sq, skv, h, g, q_sb, q_ss, q_sh, k_sb,
-                       k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal, sl2, s);
+      rc = launch<128>(q, k, v, o, lse_f, b, sq, skv, h, g, q_sb, q_ss, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, causal,
+                      sl2, s);
       break;
     default:
       rc = static_cast<int>(cudaErrorInvalidValue);

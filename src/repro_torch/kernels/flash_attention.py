@@ -8,8 +8,13 @@ k/v (b, skv, kvh, d) through strides and writes o (b, sq, h, d); query head
 ``q_offset + row >= col`` as in ``chunked_attention``.
 
 ``flash_attention`` launches the kernel for CUDA tensors (bf16, head dims
-16/32/64/96/128) and raises on anything it does not take; for CPU tensors it
-computes ``flash_attention_plain``. ``launches`` counts kernel launches.
+16/32/64/96/128) and raises on anything it does not take, or on an input
+that requires grad while grad is enabled (the kernel has no backward); for
+CPU tensors it computes ``flash_attention_plain``. With ``return_lse`` both
+also return each query row's log-sum-exp L = max(s) + ln(sum e^(s - max))
+of the scaled scores s = q.k / sqrt(d), fp32 (b, h, sq): what the training
+backward (``models.attention.FlashAttentionFn``) reads. ``launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (HEAD_DIMS, check_attention_sizes,
-                                         check_cuda_bf16, check_rows)
+                                         check_cuda_bf16, check_no_grad,
+                                         check_rows)
 
 NEG_INF = -1e30
 #: kernel launches made by flash_attention() (the CUDA route only)
@@ -35,7 +41,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_bf16
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _I, ctypes.c_float, _I, _P]
     fn.restype = _I
@@ -58,10 +64,11 @@ def occupancy(d: int, device: torch.device) -> Tuple[int, int]:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          q_offset: int = 0) -> torch.Tensor:
+                          *, causal: bool = True, q_offset: int = 0,
+                          return_lse: bool = False):
     """The same function in plain PyTorch: fp32 scores, softmax, P cast to
-    v's dtype, fp32 P V, output in q's dtype."""
+    v's dtype, fp32 P V, output in q's dtype; with ``return_lse`` also the
+    fp32 (b, h, sq) row log-sum-exp of the scaled scores."""
     b, sq, h, d = q.shape
     skv, g = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, g, h // g, d)
@@ -72,16 +79,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(rows[:, None] < cols[None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     o = torch.einsum("bgmqk,bkgd->bqgmd", p, v.float())
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    o = o.reshape(b, sq, h, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q (b, sq, h, d); k, v (b, skv, kvh, d) -> (b, sq, h, d)."""
+                    causal: bool = True, q_offset: int = 0,
+                    return_lse: bool = False):
+    """q (b, sq, h, d); k, v (b, skv, kvh, d) -> o (b, sq, h, d), and with
+    ``return_lse`` (o, L (b, h, sq) fp32)."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset, return_lse=return_lse)
+    check_no_grad("flash_attention", q=q, k=k, v=v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
@@ -101,9 +114,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows(name, t)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     stream = torch.cuda.current_stream(q.device)
     rc = _lib().repro_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, sq, skv, h, g, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -115,4 +131,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {rc}")
     with _launches_lock:        # exact under concurrent callers
         launches += 1
-    return out
+    return out if lse is None else (out, lse)

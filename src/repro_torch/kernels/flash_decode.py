@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (HEAD_DIMS, check_cuda_bf16,
-                                         check_rows)
+                                         check_no_grad, check_rows)
 
 NEG_INF = -1e30
 #: query heads per kv head the kernel is instantiated for
@@ -175,6 +175,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     global launches
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, kv_len)
+    check_no_grad("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on CUDA or the CPU, not "
                          f"{q.device}")

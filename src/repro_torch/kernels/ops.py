@@ -14,12 +14,14 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    n_heads: int, n_kv_heads: int, causal: bool = True,
-                   q_offset: int = 0) -> torch.Tensor:
-    """Model layout: q (b, s, h, d); k/v (b, s, kvh, d) -> (b, s, h, d)."""
+                   q_offset: int = 0, return_lse: bool = False):
+    """Model layout: q (b, s, h, d); k/v (b, s, kvh, d) -> (b, s, h, d), and
+    with ``return_lse`` also the fp32 row log-sum-exp (b, h, s)."""
     if q.shape[2] != n_heads or k.shape[2] != n_kv_heads:
         raise ValueError(f"heads {q.shape[2]}/{k.shape[2]} != "
                          f"{n_heads}/{n_kv_heads}")
-    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           return_lse=return_lse)
 
 
 def decode_attention_bshd(q: torch.Tensor, k_cache: torch.Tensor,

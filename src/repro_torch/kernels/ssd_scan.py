@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_cuda_bf16, check_rows
+from repro_torch.kernels._checks import (check_cuda_bf16, check_no_grad,
+                                         check_rows)
 
 NEG_INF = -1e30
 #: (head dim P, state size N) pairs the kernel is instantiated for
@@ -172,6 +173,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     global launches
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
+    check_no_grad("ssd_scan", x=x, dt=dt, A=A, B=B, C=C,
+                  init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {x.device}")
     _check_cuda(x, dt, A, B, C, chunk, init_state)

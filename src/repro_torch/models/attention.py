@@ -5,6 +5,13 @@ CPU path and mirror the JAX package's chunked online softmax. When the
 tensors lie on a CUDA device, ``chunked_attention`` and ``decode_attention``
 run the hand-written kernels instead (``repro_torch.kernels``); the device
 of the tensors decides, and a CUDA tensor never takes the eager path.
+Neither has a backward on CUDA (the kernels raise if asked for one).
+
+Training goes through ``FlashAttentionFn``, the counterpart of the JAX
+package's ``flash_attention_jax`` custom VJP: the forward is the
+flash-attention kernel writing its row log-sum-exp L (on the CPU, the
+kernel's plain version); the backward, the same code on both, is
+``_flash_bwd_rule`` blocked over (q chunk, kv chunk) in fp32.
 
 GQA layout convention: q is grouped as (b, s, g, m, hd) where g = n_kv_heads
 and m = n_heads // n_kv_heads; k/v are (b, s, g, hd).
@@ -138,6 +145,80 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _chunked_attention_eager(q, k, v, causal=causal, q_chunk=q_chunk,
                                     kv_chunk=kv_chunk, kv_len=kv_len,
                                     q_offset=q_offset, block_skip=block_skip)
+
+
+# ---------------------------------------------------------------------------
+# flash-style autograd Function (the training path)
+#
+# The forward saves only (q, k, v, o, L = m + ln l) per row; the backward
+# rebuilds each probability block: p = exp(s - L); dv += p^T do;
+# ds = p * (do v^T - delta) * scale; dq += ds k; dk += ds^T q, with
+# delta = sum(do * o) per row (repro/models/attention.py:258-311). Blocks
+# are cut as the JAX package cuts them, except that the last one may be
+# shorter: rows and columns are independent, so no padding is needed.
+# ---------------------------------------------------------------------------
+
+def _flash_bwd(q, k, v, o, L, do, causal: bool, q_chunk: int,
+               kv_chunk: int):
+    """(dq, dk, dv) in the inputs' dtypes, accumulated in fp32; dk and dv
+    sum over the query heads of each kv head's group."""
+    b, sq, g, m, hd = q.shape
+    skv = k.shape[1]
+    qc, kc = min(q_chunk, sq), min(kv_chunk, skv)
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = torch.einsum("bqgmh,bqgmh->bgmq", dof, o.float())
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, sq, qc):
+        q_blk, do_blk = qf[:, q0:q0 + qc], dof[:, q0:q0 + qc]
+        L_blk, d_blk = L[..., q0:q0 + qc], delta[..., q0:q0 + qc]
+        rows = q0 + torch.arange(q_blk.shape[1], device=q.device)
+        for k0 in range(0, skv, kc):
+            k_blk, v_blk = kf[:, k0:k0 + kc], vf[:, k0:k0 + kc]
+            s = torch.einsum("bqgmh,bkgh->bgmqk", q_blk, k_blk) * scale
+            if causal:
+                cols = k0 + torch.arange(k_blk.shape[1], device=q.device)
+                s = torch.where(rows[:, None] >= cols[None, :], s,
+                                torch.full_like(s, NEG_INF))
+            p = torch.exp(s - L_blk[..., None])
+            dv[:, k0:k0 + kc] += torch.einsum("bgmqk,bqgmh->bkgh", p, do_blk)
+            dp = torch.einsum("bqgmh,bkgh->bgmqk", do_blk, v_blk)
+            ds = p * (dp - d_blk[..., None]) * scale
+            dq[:, q0:q0 + qc] += torch.einsum("bgmqk,bkgh->bqgmh", ds, k_blk)
+            dk[:, k0:k0 + kc] += torch.einsum("bgmqk,bqgmh->bkgh", ds, q_blk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal or full attention with a flash backward, for training.
+
+    q (b, sq, g, m, hd); k, v (b, skv, g, hd) -> (b, sq, g, m, hd), the
+    layout and semantics of ``chunked_attention`` without ``kv_len`` or
+    ``q_offset``. The forward is the flash-attention kernel with its row
+    log-sum-exp (``kernels.ops.attention_bshd(return_lse=True)``; on the
+    CPU that is the kernel's plain version); the backward is ``_flash_bwd``
+    on either device. The chunks cut the backward's blocks only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, q_chunk: int = 512,
+                kv_chunk: int = 1024):
+        b, sq, g, m, hd = q.shape
+        o, L = ops.attention_bshd(ungroup_heads(q), k, v, n_heads=g * m,
+                                  n_kv_heads=g, causal=causal,
+                                  return_lse=True)
+        o, L = group_query_heads(o, g), L.view(b, g, m, sq)
+        ctx.save_for_backward(q, k, v, o, L)
+        ctx.causal, ctx.q_chunk, ctx.kv_chunk = causal, q_chunk, kv_chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, L = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, L, do, ctx.causal, ctx.q_chunk,
+                                ctx.kv_chunk)
+        return dq, dk, dv, None, None, None
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

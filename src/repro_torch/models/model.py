@@ -1,14 +1,17 @@
 """Unified model API over the architecture families (torch counterpart of
-``repro.models.model``), for serving:
+``repro.models.model``):
 
     defs   = param_defs(cfg)                       # ParamDef tree
     params = init_params(cfg, generator, device)
+    logits, aux   = forward(cfg, params, tokens, prefix_emb, remat=...)
     logits, cache = prefill(cfg, params, tokens, prefix_emb, max_len=...)
     logits, cache = decode_step(cfg, params, cache, tokens)
     cache  = init_cache(cfg, batch, max_len, device)
 
-The cache is allocated once, in ``prefill``, and decode steps update its
-states in place.
+Every family serves. The training ``forward`` runs the attention families
+but MoE (ROADMAP A11b); the hybrid and xLSTM ones are not ported yet
+(A11c, A11d). The cache is allocated once, in ``prefill``, and decode
+steps update its states in place.
 """
 from __future__ import annotations
 
@@ -144,6 +147,24 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device) -> Dict:
     ``scale/sqrt(fan_in)``, zeros, ones, as the JAX package's
     ``init_params``), placed on ``device``."""
     return init_from_defs(param_defs(cfg), generator, device)
+
+
+def forward(cfg: LMConfig, params, tokens, prefix_emb=None, remat=False,
+            return_hidden=False):
+    if cfg.family in ATTN_FAMILIES:
+        return tfm.forward(cfg, params, tokens, prefix_emb, remat,
+                           return_hidden)
+    if cfg.family == "ssm":
+        raise NotImplementedError("xLSTM training is not ported yet: "
+                                  "ROADMAP A11d")
+    if cfg.family == "hybrid":
+        raise NotImplementedError("hybrid training (a backward for the SSD "
+                                  "scan) is not ported yet: ROADMAP A11c")
+    raise ValueError(cfg.family)
+
+
+def unembed_weight(cfg: LMConfig, params):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
 def prefill(cfg: LMConfig, params, tokens, prefix_emb=None, max_len=None):

@@ -5,19 +5,26 @@ package's pytree: per-layer weights are stacked along a leading ``layers``
 axis, and the layer loop indexes them (a view, not a copy). On CUDA the
 attention runs the flash-attention kernel in prefill and the flash-decode
 kernel in every decode step; nothing here synchronises the host.
+
+``forward`` is the training forward: attention through ``FlashAttentionFn``
+(the kernel with its row log-sum-exp on CUDA, and a written-out flash
+backward), each block optionally recomputed in the backward (``remat``).
+MoE training is not ported yet (ROADMAP A11b).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.attention import (chunked_attention, decode_attention,
-                                          group_query_heads, ungroup_heads)
+from repro_torch.models.attention import (FlashAttentionFn, chunked_attention,
+                                          decode_attention, group_query_heads,
+                                          ungroup_heads)
 from repro_torch.models.layers import (ParamDef, apply_rope, mlp_defs,
                                        mlp_fwd, norm, norm_defs, rope_freqs)
 
@@ -122,6 +129,42 @@ def ffn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     return x + mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp)
 
 
+def attn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """The attention sublayer with its residual, for training: whether or
+    not ``cfg.attn_custom_vjp`` is set (the JAX package's two routes give
+    the same gradient), through ``FlashAttentionFn``."""
+    h = norm(x, p["attn_norm"], cfg.norm_type, cfg.norm_eps)
+    q, k, v = _qkv(cfg, p["attn"], h, positions)
+    o = FlashAttentionFn.apply(group_query_heads(q, cfg.n_kv_heads), k, v,
+                               True, cfg.q_chunk, cfg.kv_chunk)
+    return x + _attn_out(p["attn"], o)
+
+
+def block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
+              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One training block: (x, the block's aux loss, 0 without MoE)."""
+    if cfg.moe:
+        raise NotImplementedError(
+            "MoE training (the router's aux-loss gradient) is not ported "
+            "yet: ROADMAP A11b")
+    x = attn_block_fwd(cfg, p, x, positions)
+    h = norm(x, p["mlp_norm"], cfg.norm_type, cfg.norm_eps)
+    return x + mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def unbind_layers(blocks: Dict, n: int) -> List[Dict]:
+    """The stacked block parameters as ``n`` per-layer dicts, by one
+    ``unbind`` per leaf: its backward stacks the layers' gradients in one
+    operation, where indexing each layer would add ``n`` zero-padded
+    gradients of the whole stack."""
+    if isinstance(blocks, dict):
+        per = {k: unbind_layers(v, n) for k, v in blocks.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(blocks, 0))
+
+
 # ---------------------------------------------------------------------------
 # embedding / logits
 # ---------------------------------------------------------------------------
@@ -141,6 +184,32 @@ def embed_tokens(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
 def logits_fwd(cfg: LMConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# full forward (train / scoring)
+# ---------------------------------------------------------------------------
+
+def forward(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
+            prefix_emb: Optional[torch.Tensor] = None, remat: bool = False,
+            return_hidden: bool = False) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/scoring forward. Returns (logits|hidden, aux_loss). With
+    ``remat`` each block keeps only its input and is recomputed in the
+    backward (``jax.checkpoint`` of the block in the JAX package)."""
+    x, positions = embed_tokens(cfg, params, tokens, prefix_emb)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in unbind_layers(params["blocks"], cfg.n_layers):
+        if remat:
+            x, a = checkpoint(block_fwd, cfg, bp, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = block_fwd(cfg, bp, x, positions)
+        aux = aux + a
+    x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    if return_hidden:
+        return x, aux
+    return logits_fwd(cfg, params, x), aux
 
 
 # ---------------------------------------------------------------------------

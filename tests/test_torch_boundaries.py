@@ -51,3 +51,12 @@ def test_the_scan_catches_what_it_forbids():
     mods = [m for _, m in _imported_modules(ast.parse(src))
             if m.split(".")[0] in FORBIDDEN]
     assert mods == ["jax.numpy", "repro.core", "ml_dtypes", "repro.models"]
+
+
+def test_the_training_modules_are_scanned():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("train/loss.py", "train/optimizer.py", "train/train_step.py",
+                "train/trainer.py", "checkpoint/checkpointer.py",
+                "launch/train.py", "data/pipeline.py",
+                "core/chunk_search.py"):
+        assert f"src/repro_torch/{mod}" in rel, mod

@@ -377,3 +377,117 @@ def test_moe_fwd_on_the_card_matches_the_cpu_and_repeats_its_bits():
     torch.testing.assert_close(out1.float().cpu(), out_cpu.float(),
                                rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(aux1.cpu(), aux_cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+def test_flash_attention_lse_matches_plain_and_leaves_the_output(d):
+    """The row log-sum-exp the training backward reads, at every head dim
+    (GQA 4:1, a length that ends inside a q tile, causal and full): within
+    rtol = atol = 1e-4 of the plain version's fp32 logsumexp (the kernel's
+    sums are fp32 and its exponentials ex2.approx), and the output with L
+    asked for equal bit for bit to the output without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(100 + d)
+    for b, sq, h, kvh, causal in [(2, 200, 8, 2, True), (1, 77, 4, 4, False)]:
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(b, sq, kvh, d, generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        plain = FA.flash_attention(q, k, v, causal=causal)
+        out, lse = FA.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+        _, lse_ref = FA.flash_attention_plain(q, k, v, causal=causal,
+                                              return_lse=True)
+        assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+        assert torch.equal(out, plain)
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,d", [(8, 8, 64), (8, 2, 128), (4, 4, 96)])
+def test_flash_attention_fn_backward_matches_fp32_autograd(h, kvh, d):
+    """FlashAttentionFn in bf16 on the card (the kernel's forward with L,
+    the written-out backward) against autograd through the plain version in
+    fp32 on the same values: o, dq, dk and dv each within 2e-2 of the
+    reference's largest magnitude (bf16 rounds o, do and the gradients)."""
+    from repro_torch.models.attention import (FlashAttentionFn,
+                                              group_query_heads)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(h * d)
+    b, s = 2, 160
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    o = FlashAttentionFn.apply(group_query_heads(qg, kvh), kg, vg, True, 64,
+                               64)
+    grads = torch.autograd.grad(o, (qg, kg, vg), group_query_heads(do, kvh))
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    o_ref = FA.flash_attention_plain(qf, kf, vf, causal=True)
+    ref = torch.autograd.grad(o_ref, (qf, kf, vf), do.float())
+    for name, got, exp in zip(("o", "dq", "dk", "dv"),
+                              (o.reshape(b, s, h, d),) + grads,
+                              (o_ref,) + ref):
+        err = (got.float() - exp).abs().max() / exp.abs().max()
+        assert err <= 2e-2, (name, err.item())
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_grad_on_the_card():
+    """ROADMAP C5 on CUDA tensors: flash-attention called on inputs that
+    require grad, with grad enabled and outside FlashAttentionFn, raises;
+    under no_grad it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    q = torch.randn(1, 64, 4, 64, device=dev).bfloat16().requires_grad_()
+    k = torch.randn(1, 64, 4, 64, device=dev).bfloat16()
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert FA.flash_attention(q, k, k).shape == q.shape
+
+
+@pytest.mark.gpu
+def test_trainer_steps_without_a_host_sync_repeat_the_synchronised_bits():
+    """The weight update runs on the trainer's stream and the next step's
+    chunks on their executor's stream: only an event orders them. Three
+    CUDA-only steps of full-width stablelm-1.6b cut to 2 layers, with no
+    synchronise between them, give the same loss and weights, bit for bit,
+    as the same steps with a synchronise after each."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, tree_leaves, tree_map
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_config("stablelm-1.6b").replace(n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+
+    def run(sync):
+        tr = HeteroTrainer(
+            cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev,
+                           fixed_chunk=4, async_depth=2)],
+            seq_len=256, global_batch=8,
+            oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3),
+            repeat_data=True, params=tree_map(torch.clone, params))
+        losses = []
+        for _ in range(3):
+            losses.append(tr.train_step().loss)
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return losses, tree_leaves(tr.params)
+
+    loss_sync, w_sync = run(True)
+    loss_free, w_free = run(False)
+    assert loss_free == loss_sync
+    assert all(torch.equal(a, b) for a, b in zip(w_free, w_sync))

@@ -53,7 +53,9 @@ REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 
 COPIED = sorted(
     [f"core/{m}.py" for m in ("types", "locks", "overheads", "throughput",
-                              "partitioner", "scheduler", "energy")]
+                              "partitioner", "scheduler", "energy",
+                              "chunk_search")]
+    + ["data/__init__.py", "data/pipeline.py"]
     + [f"telemetry/{m}.py" for m in ("__init__", "registry", "spans",
                                      "exporters")]
     + [str(p.relative_to(REF)) for pkg in ("queue", "tenancy", "policy",

@@ -97,9 +97,9 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    c. stablelm-1.6b at full width cut to 2 layers, its block matrices at
       fan-in scale: one ``grad_step`` through the kernels in bf16 against
       the same step with the plain versions in their place, in bf16 and
-      in fp32, leaf by leaf: the kernels' run within 5e-2 of the plain
-      bf16 run and no farther from fp32 than 1.5 times the plain bf16
-      run's;
+      in fp32, leaf by leaf: every leaf finite, the kernels' run within
+      5e-2 of the plain bf16 run and no farther from fp32 than 1.5 times
+      the plain bf16 run's;
    d. the training main path: ``HeteroTrainer`` on full-width
       stablelm-1.6b (24 layers, random weights from a torch.Generator
       seeded with 0), group ``accel:chunk=8:async=2`` on cuda:0, seq_len
@@ -113,7 +113,26 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       the bits of the same steps synchronised after each;
    e. the heterogeneous training path on reduced stablelm-1.6b, groups
       ``accel:chunk=8:async=2`` on cuda:0 and ``cpu0``: every step covers
-      the batch and the loss falls.
+      the batch and the loss falls;
+14. training the MoE, hybrid and xLSTM families:
+   a. the SSD scan forward and backward (``SSDScanFn`` under a checkpoint,
+      as training runs it: K3 exactly twice a call, the backward autograd
+      through the plain version) in bf16 at zamba2's training shape (b 8,
+      S 512, 64 heads, P = N = 64, chunks of 128): dx, ddt, dA, dB, dC
+      against autograd through the plain version in fp32, timed on the
+      device alone and back to back, beside the fp32 time and the bound;
+   b. 13c's check for granite-moe-1b-a400m cut to 2 layers (the kernel
+      run's routing replayed by the plain runs, and every recompute
+      routing as its forward did), zamba2-1.2b cut to 7 layers (its first
+      group and one tail block) and xlstm-350m cut to its first pair, each
+      with its launches exact, and whether a second run repeats the bits;
+   c. 13d's main path (random weights from a torch.Generator seeded with
+      0) on full-width granite-moe-1b-a400m (24 layers; K1 2 x 24 a
+      chunk; then one full-model step's recompute routing against its
+      forward), zamba2-1.2b (38 layers; a chunk launches K3 2 x 36
+      + 2, the tail blocks not being recomputed, and K1 2 x 6) and
+      xlstm-350m (12 pairs, 3 steps of 16 examples of 256 tokens; no
+      kernel launch).
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -449,6 +468,17 @@ def kernel_variants(dev, gen):
         raise AssertionError(f"ssd_scan P={P} N={N}: {rel_y}, {rel_s}")
 
 
+def ssd_flops(b, s, nh, P, N, Q):
+    """The products the SSD scan needs: per chunk, the causal Q x Q blocks
+    (C.B^T and W.x over the lower triangle), C.S_in and the state
+    update."""
+    flops = 0
+    for c0 in range(0, s, Q):
+        L = min(Q, s - c0)
+        flops += b * nh * (L * (L + 1) // 2 * 2 * (N + P) + 4 * L * N * P)
+    return flops
+
+
 def ssd_rows(dev, gen):
     """K3 at the zamba2 prefill shape (b=8, 64 heads, P=N=64, chunk 128),
     x/B/C as column slices of one conv output, inputs scaled as
@@ -484,17 +514,11 @@ def ssd_rows(dev, gen):
         max_err = max(max_err, err_y)
         ms, b2b_ms = times(lambda: SSD.ssd_scan(*args), 20)
         plain_ms = cuda_ms(lambda: SSD.ssd_scan_plain(*args), 3)
-        # each input read once, each output written once; the products
-        # the function needs: the causal Q x Q blocks (C.B^T and W.x over
-        # the lower triangle), C.S_in and the state update, per chunk
+        # each input read once, each output written once
         nbytes = 2 * (2 * b * s * nh * P + 2 * b * s * g * N) \
             + 4 * (b * s * nh + nh) \
             + 4 * b * nh * P * N * (2 if with_init else 1)
-        flops = 0
-        for c0 in range(0, s, Q):
-            L = min(Q, s - c0)
-            flops += b * nh * (L * (L + 1) // 2 * 2 * (N + P)
-                               + 4 * L * N * P)
+        flops = ssd_flops(b, s, nh, P, N, Q)
         b_ms, b_by = bound(nbytes, flops)
         log(f"ssd_scan {name}: b={b} S={s} nh={nh} P={P} N={N} g={g} "
             f"Q={Q} init_state={with_init} max_abs_err y={err_y:.3e} "
@@ -525,22 +549,34 @@ class _PlainAttentionFn:
         return o.view(b, sq, g, m, hd)
 
 
+class _PlainSSDScanFn:
+    """``SSDScanFn``'s plain version: autograd through the plain SSD scan,
+    neither the kernel nor the Function's recompute."""
+
+    @staticmethod
+    def apply(x, dt, A, B, C, chunk, init_state):
+        from repro_torch.kernels.ssd_scan import ssd_scan_plain
+        return ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
+
+
 class plain_kernels:
     """Within the block, the model calls the kernels' plain versions
-    instead of the kernels, and trains through ``_PlainAttentionFn``
-    instead of ``FlashAttentionFn`` (the reference runs of phases 3, 6 and
-    13c)."""
+    instead of the kernels, and trains through ``_PlainAttentionFn`` and
+    ``_PlainSSDScanFn`` instead of ``FlashAttentionFn`` and ``SSDScanFn``
+    (the reference runs of phases 3, 6, 13c and 14b)."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
         from repro_torch.kernels.flash_attention import flash_attention_plain
         from repro_torch.kernels.flash_decode import flash_decode_plain
         from repro_torch.kernels.ssd_scan import ssd_scan_plain
-        from repro_torch.models import transformer
-        self.ops, self.tfm = ops, transformer
+        from repro_torch.models import ssm, transformer
+        self.ops, self.tfm, self.ssm = ops, transformer, ssm
         self.saved = (ops.attention_bshd, ops.decode_attention_bshd,
-                      ops.ssd_bshn, transformer.FlashAttentionFn)
+                      ops.ssd_bshn, transformer.FlashAttentionFn,
+                      ssm.SSDScanFn)
         transformer.FlashAttentionFn = _PlainAttentionFn
+        ssm.SSDScanFn = _PlainSSDScanFn
         ops.attention_bshd = lambda q, k, v, n_heads, n_kv_heads, causal, \
             q_offset=0, return_lse=False: flash_attention_plain(
                 q, k, v, causal=causal, q_offset=q_offset,
@@ -553,7 +589,8 @@ class plain_kernels:
 
     def __exit__(self, *exc):
         (self.ops.attention_bshd, self.ops.decode_attention_bshd,
-         self.ops.ssd_bshn, self.tfm.FlashAttentionFn) = self.saved
+         self.ops.ssd_bshn, self.tfm.FlashAttentionFn,
+         self.ssm.SSDScanFn) = self.saved
 
 
 def _launches():
@@ -580,8 +617,7 @@ def phase_reference(dev, cfg, params):
     softmax amplifies from layer to layer: tolerance max |dlogit| <=
     5e-2 * max |logit|. A model with a modality prefix (phi-3-vision)
     gets random prefix embeddings, as the engine feeds it."""
-    cfg2 = cfg.replace(n_layers=2)
-    params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
+    cfg2, params2 = first_blocks(2)(cfg, params)
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
                            dtype=torch.int32).to(dev)
@@ -717,6 +753,19 @@ def hybrid_cut(cfg, params, n_layers):
         cfg.hybrid, attn_every=n_layers + 1)), cut
 
 
+def first_blocks(n_layers):
+    """A cut for ``_fan_in_cut``: the first ``n_layers`` blocks."""
+    return lambda cfg, params: (cfg.replace(n_layers=n_layers), dict(
+        params, blocks=_map(lambda t: t[:n_layers], params["blocks"])))
+
+
+def first_pair(cfg, params):
+    """A cut for ``_fan_in_cut``: the xLSTM's first pair."""
+    return cfg.replace(n_layers=cfg.xlstm.slstm_every), dict(
+        params, m=_map(lambda t: t[:1], params["m"]),
+        s=_map(lambda t: t[:1], params["s"]))
+
+
 class no_tf32:
     """Within the block, fp32 matmuls and convolutions run in fp32, not
     TF32 (the fp32 reference runs)."""
@@ -780,28 +829,46 @@ def hybrid_runs(dev, cfg, params, n_layers):
 class routing:
     """Within the block, every MoE layer's router call (``moe._route``)
     is recorded in call order in ``self.calls``: (probs, gates, picked
-    experts). Given ``replay``, another run's record, each call returns
-    that run's gates and picks for the same call instead of its own."""
+    experts), and every capacity selection's tokens (``moe._capacity``,
+    (E, slots)) in ``self.kept``. Given ``replay``, another run's
+    ``routing``, each call takes that run's gates, picked experts and kept
+    tokens for the same call instead of its own; the gates keep the
+    gradient of the run's own (its renormalised router probabilities at
+    the replayed picks), so that a backward still reaches the router."""
 
     def __init__(self, replay=None):
-        self.replay, self.calls = replay, []
+        self.replay, self.calls, self.kept = replay, [], []
 
     def __enter__(self):
         from repro_torch.models import moe
-        self.moe, self.saved = moe, moe._route
+        self.moe, self.saved = moe, (moe._route, moe._capacity)
+        route, capacity = self.saved
 
-        def route(cfg, p, xf):
-            probs, gates, picks = self.saved(cfg, p, xf)
+        def recording_route(cfg, p, xf):
+            probs, gates, picks = route(cfg, p, xf)
             if self.replay is not None:
-                _, gates, picks = self.replay[len(self.calls)]
+                _, replayed, picks = self.replay.calls[len(self.calls)]
+                top = probs.gather(1, picks)
+                own = top / top.sum(-1, keepdim=True).clamp_min(1e-9)
+                # the replayed values, with the gradient of the run's own
+                gates = own + (replayed - own).detach()
             self.calls.append((probs, gates, picks))
             return probs, gates, picks
 
-        moe._route = route
+        def recording_capacity(cfg, prio):
+            gates, tok = capacity(cfg, prio)
+            if self.replay is not None:
+                tok = self.replay.kept[len(self.kept)]
+                gates = prio[tok, torch.arange(tok.shape[0],
+                                               device=tok.device)[:, None]]
+            self.kept.append(tok)
+            return gates, tok
+
+        moe._route, moe._capacity = recording_route, recording_capacity
         return self
 
     def __exit__(self, *exc):
-        self.moe._route = self.saved
+        self.moe._route, self.moe._capacity = self.saved
 
 
 def picks_differing(a, b) -> float:
@@ -814,6 +881,26 @@ def picks_differing(a, b) -> float:
         diff += int((ma & ~mb).sum())
         total += int(ma.sum())
     return diff / max(total, 1)
+
+
+def recompute_differing(rec, n_layers):
+    """For a grad_step recorded by ``routing`` (each layer's router called
+    in the forward, then again in the backward's recompute, last layer
+    first): the share of the forward's (token, expert) picks that the
+    recompute did not make, and the same share of its capacity slots
+    (the tokens each expert kept)."""
+    fwd, again = rec.calls[:n_layers], rec.calls[n_layers:][::-1]
+    slots = total = 0
+    for a, b, (probs, _, _) in zip(rec.kept[:n_layers],
+                                   rec.kept[n_layers:][::-1], fwd,
+                                   strict=True):
+        E, T = a.shape[0], probs.shape[0]
+        ma = torch.zeros(E, T, dtype=torch.bool,
+                         device=a.device).scatter_(1, a, True)
+        mb = torch.zeros_like(ma).scatter_(1, b, True)
+        slots += int((ma & ~mb).sum())
+        total += int(ma.sum())
+    return picks_differing(fwd, again), slots / max(total, 1)
 
 
 def rel_err(a, b):
@@ -886,8 +973,8 @@ def phase_reference_moe(dev, cfg, params):
     and 4 greedy decode steps; launches 2 of K1 and 8 of K2. The kernel
     run records its routing. Its plain-version run in bf16 is held against
     it as phase 3 holds the dense models, max |dlogit| <= 5e-2 * max
-    |logit|, replaying the kernel run's routing (gates and picked
-    experts). A pick flipped at a near-tie between two experts'
+    |logit|, replaying the kernel run's routing (gates, picked experts
+    and capacity slots). A pick flipped at a near-tie between two experts'
     probabilities, a discrete event that bf16 noise anywhere upstream can
     trigger, moves a token's output by a whole expert's share; on these
     random weights (stacked block weights of stddev 1/sqrt(layers),
@@ -896,8 +983,7 @@ def phase_reference_moe(dev, cfg, params):
     plain bf16 run gives the share of picks that differ and its logits'
     distance, and an fp32 run (replaying the routing too) the bf16 runs'
     drift from fp32."""
-    cfg2 = cfg.replace(n_layers=2)
-    params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
+    cfg2, params2 = first_blocks(2)(cfg, params)
     gen = torch.Generator().manual_seed(2)
     prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
                            dtype=torch.int32).to(dev)
@@ -912,9 +998,9 @@ def phase_reference_moe(dev, cfg, params):
     with no_tf32(), plain_kernels():
         with routing() as free:
             free_plain, _ = greedy_run(cfg2, params2, prompt, 128, toks)
-        with routing(rec.calls):
+        with routing(rec):
             plain, _ = greedy_run(cfg2, params2, prompt, 128, toks)
-        with routing(rec.calls):
+        with routing(rec):
             ref, ref_toks = greedy_run(
                 cfg2.replace(dtype="float32"),
                 _map(lambda t: t.float(), params2), prompt, 128, toks)
@@ -954,10 +1040,8 @@ def phase_reference_xlstm(dev, cfg, params):
       ~1e-2 of max |logit|) scaled down is ~3e-7; the bound, max |dlogit|
       <= 1e-4 * max |logit|, leaves room for reduction orders and
       transcendental routines to add 300 times that."""
-    n = cfg.xlstm.slstm_every
-    cfg1 = cfg.replace(n_layers=n)
-    params1 = dict(params, m=_map(lambda t: t[:1], params["m"]),
-                   s=_map(lambda t: t[:1], params["s"]))
+    cfg1, params1 = first_pair(cfg, params)
+    n = cfg1.n_layers
     gen = torch.Generator().manual_seed(4)
     prompt = torch.randint(0, cfg.vocab, (2, 300), generator=gen,
                            dtype=torch.int32)
@@ -1321,6 +1405,10 @@ def phase_federated(dev, cfg, params):
 #: the cosine over the six
 TRAIN_OC = dict(lr=1e-3, warmup_steps=1, total_steps=6)
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 512, 32
+#: phase 14c's cuts, to keep its run under a minute: xlstm-350m, whose
+#: sLSTM scans one token at a time (12-19 s a chunk of 8 x 512 trained),
+#: takes 3 steps of 16 examples of 256 tokens
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 3, 16, 256
 #: L against the plain version's fp32 logsumexp, as torch.allclose: both
 #: sum fp32 exponentials of the same fp32 products
 LSE_TOL = 1e-4
@@ -1330,6 +1418,10 @@ BWD_TOL = 2e-2
 #: 13c, each leaf's bf16 gradient through the kernels against the same step
 #: with the plain versions in bf16, max |diff| over the plain max |value|
 TRAIN_GRAD_TOL = 5e-2
+#: 14a, the SSD scan's bf16 gradients against fp32 autograd, max |diff| over
+#: the reference's max |value|: bf16 rounds dy, the three intermediates the
+#: forward rounds (as the JAX package does) and dx, dB, dC
+SSD_BWD_TOL = 2e-2
 
 
 def phase_lse(dev):
@@ -1456,44 +1548,68 @@ def _train_batch(dev, cfg, n):
     return {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
 
 
-def _fan_in_cut(cfg, params, n_layers):
-    """The first ``n_layers`` of ``params`` with each block matrix scaled to
+#: the stacked weight collections of each family and their stack axes
+#: (``models.layers`` draws a stacked matrix at the fan-in of its leading
+#: axis)
+STACKS = {"blocks": 1, "groups": 2, "tail": 1, "m": 2, "s": 1}
+
+
+def _fan_in_cut(cfg, params, cut):
+    """``cut(cfg, params)`` with each stacked block matrix scaled to
     stddev 1/sqrt(d_model). Drawn at the fan-in of its stacked shape
-    (stddev 1/sqrt(n_layers), as the JAX package draws it) a block matrix
-    gives scores of stddev ~85, so attention is all but one-hot and a
-    row's bf16 gradient is the rounding of o in delta = sum(do * o), as
-    large as the gradient itself; at this scale it is not."""
-    f = math.sqrt(cfg.n_layers / cfg.d_model)
-    blocks = _map(lambda t: t[:n_layers] * f if t.dim() >= 3
-                  else t[:n_layers], params["blocks"])
-    return cfg.replace(n_layers=n_layers), dict(params, blocks=blocks)
+    (stddev 1/sqrt(leading axis), as the JAX package draws it) a block
+    matrix gives attention scores of stddev ~85, so attention is all but
+    one-hot and a row's bf16 gradient is the rounding of o in delta =
+    sum(do * o), as large as the gradient itself; at this scale it is
+    not. The factor is taken from the uncut stack."""
+    scale = {k: math.sqrt(next(_leaves(params[k])).shape[0] / cfg.d_model)
+             for k in STACKS if k in params}
+    cfg_c, params_c = cut(cfg, params)
+    return cfg_c, {k: _map(lambda t, k=k: t * scale[k]
+                           if t.dim() >= STACKS[k] + 2 else t, v)
+                   if k in scale else v for k, v in params_c.items()}
 
 
-def phase_train_reference(dev, cfg, params):
-    """13c: one grad_step of the model at full width cut to 2 layers
-    (``_fan_in_cut`` of the main path's weights), 4 sequences of 512
-    tokens, through the kernels and ``FlashAttentionFn`` in bf16, against
-    the same step with their plain versions in their place (``plain
-    kernels``: the attention's backward is autograd's) in bf16, and in
-    fp32 (TF32 off). Each leaf's gradient through the kernels within TRAIN_GRAD_TOL of
-    the plain bf16 one and at most 1.5 times as far from the fp32 one as
-    the plain bf16 one (max |diff| / max |reference|); the loss within
-    1e-3 of the fp32 loss, relative (bf16 logits, averaged over 2,048
-    tokens)."""
+def phase_train_reference(dev, cfg, params, cut, want):
+    """13c and 14b: one grad_step of the model at full width, cut by
+    ``_fan_in_cut(cut)`` from the main path's weights, 4 sequences of 512
+    tokens, through the kernels, ``FlashAttentionFn`` and ``SSDScanFn`` in
+    bf16 (launches ``want``), against the same step with their plain
+    versions in their place (``plain_kernels``: the backwards are
+    autograd's) in bf16, and in fp32 (TF32 off). Each leaf's gradient
+    through the kernels finite, within TRAIN_GRAD_TOL of the plain bf16
+    one and at most 1.5 times as far from the fp32 one as the plain bf16
+    one (max |diff| / max |reference|); the loss within 1e-3 of the fp32
+    loss, relative (bf16 logits, averaged over 2,048 tokens).
+
+    An MoE model's kernel run records its routing, forward and recompute
+    (``routing``); its recompute must pick the forward's experts and
+    capacity slots (share differing: 0), and both plain runs replay that
+    routing (phase 11 says why). A second kernel run of the same step
+    tells whether the step repeats its bits (logged)."""
     from repro_torch.train.train_step import grad_step
-    cfg2, params2 = _fan_in_cut(cfg, params, 2)
+    cfg_c, params_c = _fan_in_cut(cfg, params, cut)
     batch = _train_batch(dev, cfg, 4)
+    moe = cfg.moe is not None
     _zero_launches()
-    got, m_got = grad_step(cfg2, params2, batch)
+    with routing() as rec:
+        got, m_got = grad_step(cfg_c, params_c, batch)
     counts = _launches()
-    if counts != {"flash_attention": 4, "flash_decode": 0, "ssd_scan": 0}:
+    if counts != want:
         raise AssertionError(f"the training reference check's launches: "
-                             f"{counts}")
+                             f"{counts}, expected {want}")
+    again, _ = grad_step(cfg_c, params_c, batch)
+    same_bits = sum(torch.equal(a, b) for a, b in zip(_leaves(got),
+                                                      _leaves(again)))
+    del again
+    replay = rec if moe else None
     with plain_kernels():
-        plain, m_plain = grad_step(cfg2, params2, batch)
-        with no_tf32():
-            ref, m_ref = grad_step(cfg2.replace(dtype="float32"),
-                                   _map(lambda t: t.float(), params2), batch)
+        with routing(replay):
+            plain, m_plain = grad_step(cfg_c, params_c, batch)
+        with no_tf32(), routing(replay):
+            ref, m_ref = grad_step(cfg_c.replace(dtype="float32"),
+                                   _map(lambda t: t.float(), params_c),
+                                   batch)
     dist = {}
     for (name, g), (_, p), (_, r) in zip(_named_leaves(got),
                                          _named_leaves(plain),
@@ -1505,12 +1621,17 @@ def phase_train_reference(dev, cfg, params):
                       "plain_fp32": rel_err(p.float(), r)}
     losses = {k: m["loss"].item() for k, m in
               (("kernels", m_got), ("plain", m_plain), ("fp32", m_ref))}
-    log(f"training reference check ({cfg.arch_id} widths, 2 layers at "
-        f"fan-in scale, b=4, S={TRAIN_SEQ}): losses {json.dumps(losses)} "
-        f"(tol: kernels within 1e-3 of fp32, relative); gradient max |diff| "
-        f"/ max |reference| per leaf (tol: kernels_plain <= "
-        f"{TRAIN_GRAD_TOL}, kernels_fp32 <= 1.5 x plain_fp32): "
-        + json.dumps(dist))
+    out = {"losses": losses, "launches": counts,
+           "leaves_bit_equal_on_a_second_run": f"{same_bits} of {len(dist)}"}
+    if moe:
+        picks, slots = recompute_differing(rec, cfg_c.n_layers)
+        out["recompute_differing"] = {"picks": picks, "capacity_slots": slots}
+    log(f"training reference check ({cfg.arch_id} widths, "
+        f"{cfg_c.n_layers} layers at fan-in scale, b=4, S={TRAIN_SEQ}): "
+        f"{json.dumps(out)} (tol: kernels' loss within 1e-3 of fp32, "
+        f"relative; recompute differing 0); gradient max |diff| / max "
+        f"|reference| per leaf (tol: kernels_plain <= {TRAIN_GRAD_TOL}, "
+        f"kernels_fp32 <= 1.5 x plain_fp32): " + json.dumps(dist))
     off = [n for n, d in dist.items()
            if not (d["kernels_plain"] <= TRAIN_GRAD_TOL
                    and d["kernels_fp32"] <= 1.5 * d["plain_fp32"])]
@@ -1518,7 +1639,11 @@ def phase_train_reference(dev, cfg, params):
             <= 1e-3 * abs(losses["fp32"]):
         raise AssertionError(f"training step off: leaves {off}, losses "
                              f"{losses}")
-    return {"losses": losses, "grad_rel_dist": dist}
+    if moe and (picks or slots):
+        raise AssertionError(f"the recompute routed otherwise than the "
+                             f"forward: {out['recompute_differing']}")
+    out["grad_rel_dist"] = dist
+    return out
 
 
 def phase_train_ordering(dev, cfg, params):
@@ -1530,8 +1655,7 @@ def phase_train_ordering(dev, cfg, params):
     from repro_torch.core.types import DeviceKind
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import GroupDef, HeteroTrainer
-    cfg2 = cfg.replace(n_layers=2)
-    params2 = dict(params, blocks=_map(lambda t: t[:2], params["blocks"]))
+    cfg2, params2 = first_blocks(2)(cfg, params)
 
     def run(sync):
         tr = HeteroTrainer(
@@ -1559,57 +1683,161 @@ def phase_train_ordering(dev, cfg, params):
                              "the synchronised ones")
 
 
-def phase_train_main(dev, cfg, params):
-    """13d: the training main path on ``params`` (full-width stablelm)."""
+def phase_train_main(dev, cfg, params, per_chunk, steps=TRAIN_STEPS,
+                     seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH):
+    """13d and 14c: the training main path on ``params`` (a full-width
+    model): ``HeteroTrainer``, group ``accel:chunk=8:async=2``, ``steps``
+    AdamW steps on one repeated global batch; launches must equal
+    ``per_chunk[k]`` a chunk for each kernel k."""
     from repro_torch.core.types import DeviceKind
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import GroupDef, HeteroTrainer
     groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
                        async_depth=2)]
-    tr = HeteroTrainer(cfg, groups, seq_len=TRAIN_SEQ,
-                       global_batch=TRAIN_BATCH, oc=OptConfig(**TRAIN_OC),
+    oc = dict(TRAIN_OC, total_steps=steps)
+    tr = HeteroTrainer(cfg, groups, seq_len=seq_len,
+                       global_batch=global_batch, oc=OptConfig(**oc),
                        seed=0, repeat_data=True, params=params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
-    steps = []
+    records = []
     start = t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         # no synchronise inside the window: a step's update overlaps the
         # next step's dispatch, as in any run of the trainer
         rep = tr.train_step()
         t1 = time.perf_counter()
-        steps.append({"step": rep.step, "loss": rep.loss,
-                      "examples": rep.examples,
-                      "items": rep.per_group_items, "host_s": t1 - t0,
-                      "sched_s": rep.time_s,
-                      "chunks": rep.overheads["accel"]["n_chunks"]})
+        records.append({"step": rep.step, "loss": rep.loss,
+                        "examples": rep.examples,
+                        "items": rep.per_group_items, "host_s": t1 - t0,
+                        "sched_s": rep.time_s,
+                        "chunks": rep.overheads["accel"]["n_chunks"]})
         t0 = t1
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
     counts = _launches()
-    chunks = sum(s["chunks"] for s in steps)
-    want = {"flash_attention": chunks * 2 * cfg.n_layers, "flash_decode": 0,
-            "ssd_scan": 0}
-    out = {"steps": steps, "chunks": chunks, "launches": counts,
-           "wall_s": wall_s, "s_per_step": wall_s / TRAIN_STEPS,
-           "tok_per_s": sum(s["examples"] for s in steps) * TRAIN_SEQ
+    chunks = sum(r["chunks"] for r in records)
+    want = {k: chunks * per_chunk.get(k, 0) for k in counts}
+    out = {"steps": records, "chunks": chunks, "launches": counts,
+           "wall_s": wall_s, "s_per_step": wall_s / steps,
+           "tok_per_s": sum(r["examples"] for r in records) * seq_len
            / wall_s,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "opt": TRAIN_OC, "seq_len": TRAIN_SEQ,
-           "global_batch": TRAIN_BATCH}
+           "opt": oc, "seq_len": seq_len, "global_batch": global_batch}
     log(f"training main path report ({cfg.arch_id}): " + json.dumps(out))
     del tr
-    if any(s["examples"] != TRAIN_BATCH
-           or sum(s["items"].values()) != TRAIN_BATCH for s in steps):
-        raise AssertionError(f"a step did not cover {TRAIN_BATCH} examples")
-    if not all(math.isfinite(s["loss"]) for s in steps) \
-            or not steps[-1]["loss"] < steps[0]["loss"]:
+    if any(r["examples"] != global_batch
+           or sum(r["items"].values()) != global_batch for r in records):
+        raise AssertionError(f"a step did not cover {global_batch} examples")
+    if not all(math.isfinite(r["loss"]) for r in records) \
+            or not records[-1]["loss"] < records[0]["loss"]:
         raise AssertionError(f"the loss did not fall: "
-                             f"{[s['loss'] for s in steps]}")
+                             f"{[r['loss'] for r in records]}")
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     return counts, out
+
+
+def phase_recompute_routing(dev, cfg, params):
+    """14c, after granite-moe's main path: one grad_step of the full model
+    on one chunk (8 x 512) with its routing recorded; every layer's
+    recompute must pick the forward's experts and capacity slots."""
+    from repro_torch.train.train_step import grad_step
+    with routing() as rec:
+        grad_step(cfg, params, _train_batch(dev, cfg, 8))
+    picks, slots = recompute_differing(rec, cfg.n_layers)
+    log(f"recompute routing ({cfg.arch_id}, {cfg.n_layers} layers, 8 x "
+        f"{TRAIN_SEQ}): share of the forward's picks the recompute did not "
+        f"make {picks}, of its capacity slots {slots} (tol 0)")
+    if picks or slots:
+        raise AssertionError(f"the recompute routed otherwise: {picks}, "
+                             f"{slots}")
+    return {"picks": picks, "capacity_slots": slots}
+
+
+def phase_ssd_backward(dev):
+    """14a: the SSD scan forward and backward in bf16 at zamba2's training
+    shape (b 8, s 512, 64 heads, P = N = 64, one group, chunks of 128),
+    as training runs it: ``SSDScanFn`` under a checkpoint, so K3 runs
+    twice a call (forward and recompute), and the backward differentiates
+    the plain version. dx, ddt, dA, dB and dC against autograd through the
+    plain version in fp32 (TF32 off), max |diff| / max |reference| <=
+    SSD_BWD_TOL; timed on the device alone (a CUDA graph) and back to
+    back, beside the fp32 autograd time and the bound."""
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.ssm import SSDScanFn
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, s, nh, P, N, g, Q = 8, 512, 64, 64, 64, 1, 128
+    conv = (torch.randn(b, s, nh * P + 2 * g * N, generator=gen,
+                        device=dev) * 0.5).to(torch.bfloat16)
+    dt = F.softplus(torch.randn(b, s, nh, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.3)
+    dy = (torch.randn(b, s, nh, P, generator=gen, device=dev) * 0.1) \
+        .to(torch.bfloat16)
+
+    def split(t):
+        return (t[..., :nh * P].unflatten(-1, (nh, P)),
+                t[..., nh * P:nh * P + g * N].unflatten(-1, (g, N)),
+                t[..., nh * P + g * N:].unflatten(-1, (g, N)))
+
+    def grads(fn, conv, dt, A, dy):
+        leaves = [t.detach().requires_grad_() for t in (conv, dt, A)]
+        x, B, C = split(leaves[0])
+        y = fn(x, leaves[1], leaves[2], B, C)
+        dconv, ddt, dA = torch.autograd.grad(y, leaves, dy)
+        dx, dB, dC = split(dconv)
+        return {"dx": dx, "ddt": ddt, "dA": dA, "dB": dB, "dC": dC}
+
+    def fwd_bwd():
+        return grads(lambda *a: checkpoint(
+            lambda *a: SSDScanFn.apply(*a, Q, None)[0], *a,
+            use_reentrant=False), conv, dt, A, dy)
+
+    def plain_fwd_bwd():
+        return grads(lambda *a: SSD.ssd_scan_plain(*a, Q)[0], conv.float(),
+                     dt, A, dy.float())
+
+    _zero_launches()
+    got = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = _launches()["ssd_scan"]
+    if launches != 2:
+        raise AssertionError(f"ssd_scan forward + backward launched K3 "
+                             f"{launches} times, expected 2")
+    with no_tf32():
+        ref = plain_fwd_bwd()
+    errs = {k: rel_err(got[k].float(), ref[k]) for k in got}
+    bad = [k for k, v in got.items()
+           if v.dtype != {"ddt": dt, "dA": A}.get(k, conv).dtype
+           or not torch.isfinite(v).all()]
+    del got, ref
+    if bad or not max(errs.values()) <= SSD_BWD_TOL:
+        raise AssertionError(f"ssd_scan backward: {errs}, dtype or finite "
+                             f"off: {bad}")
+    ms, b2b_ms = times(fwd_bwd, 5)
+    with no_tf32():
+        plain_ms = cuda_ms(plain_fwd_bwd, 3)
+    # the least work: the forward's products once and their backward, two
+    # products for each; x, B, C, dt, A and dy read once, y never stored,
+    # dx, dB, dC, ddt and dA written once
+    flops = 3 * ssd_flops(b, s, nh, P, N, Q)
+    nbytes = 2 * 2 * (b * s * nh * P + 2 * b * s * g * N) \
+        + 2 * b * s * nh * P + 2 * 4 * (b * s * nh + nh)
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"ssd_scan forward + backward (training, checkpointed): b={b} S={s} "
+        f"nh={nh} P={P} N={N} g={g} Q={Q} bf16, K3 launches a call "
+        f"{launches}; max |diff| / max |fp32 autograd|: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {SSD_BWD_TOL}); ms={ms:.4f} (back to back {b2b_ms:.4f}) "
+        f"plain_fp32_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); no PyTorch call "
+        f"computes the scan")
+    return dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, rel_err=errs,
+                launches_a_call=launches)
 
 
 def phase_train_hetero(dev):
@@ -1708,12 +1936,50 @@ def main():
     rows["flash_attention"]["training_backward"] = \
         phase_attention_backward(dev)
     cfg, params = full_width_model(dev, "stablelm-1.6b")
-    phase_train_reference(dev, cfg, params)
-    counts["stablelm-1.6b training"], _ = phase_train_main(dev, cfg, params)
+    phase_train_reference(dev, cfg, params, first_blocks(2),
+                          {"flash_attention": 4, "flash_decode": 0,
+                           "ssd_scan": 0})
+    counts["stablelm-1.6b training"], _ = phase_train_main(
+        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
     phase_train_ordering(dev, cfg, params)
     del params
     free_model()
     phase_train_hetero(dev)
+    # phase 14: training the MoE, hybrid and xLSTM families
+    rows["ssd_scan"]["training_backward"] = phase_ssd_backward(dev)
+    cfg, params = full_width_model(dev, "granite-moe-1b-a400m")
+    phase_train_reference(dev, cfg, params, first_blocks(2),
+                          {"flash_attention": 4, "flash_decode": 0,
+                           "ssd_scan": 0})
+    counts[f"{cfg.arch_id} training"], _ = phase_train_main(
+        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+    phase_recompute_routing(dev, cfg, params)
+    del params
+    free_model()
+    from repro_torch.models.hybrid import hybrid_layout
+    cfg, params = full_width_model(dev, "zamba2-1.2b")
+    phase_train_reference(dev, cfg, params,
+                          lambda c, p: hybrid_cut(c, p, 7),
+                          {"flash_attention": 2, "flash_decode": 0,
+                           "ssd_scan": 2 * 6 + 1})
+    # remat per group: a group's Mamba-2 blocks and shared block run twice
+    # a chunk (forward, recompute), the tail blocks once, as in the JAX
+    # package (src/repro/models/hybrid.py:63-67)
+    n_groups, k, tail = hybrid_layout(cfg)
+    counts[f"{cfg.arch_id} training"], _ = phase_train_main(
+        dev, cfg, params, {"ssd_scan": 2 * n_groups * k + tail,
+                           "flash_attention": 2 * n_groups})
+    del params
+    free_model()
+    cfg, params = full_width_model(dev, "xlstm-350m")
+    phase_train_reference(dev, cfg, params, first_pair,
+                          {"flash_attention": 0, "flash_decode": 0,
+                           "ssd_scan": 0})
+    counts[f"{cfg.arch_id} training"], _ = phase_train_main(
+        dev, cfg, params, {}, steps=XLSTM_TRAIN_STEPS,
+        seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
+    del params
+    free_model()
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),

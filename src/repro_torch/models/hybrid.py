@@ -1,6 +1,7 @@
 """Zamba2-style hybrid backbone: Mamba-2 blocks + one parameter-shared
 attention(+MLP) block applied every ``attn_every`` SSM blocks. Torch
-counterpart of ``repro.models.hybrid`` (serving: prefill and decode).
+counterpart of ``repro.models.hybrid``: the training forward, prefill and
+decode.
 
 Layer layout for n_layers=38, attn_every=6:
   6 groups of [6 mamba blocks -> shared attn block] + 2 tail mamba blocks.
@@ -9,7 +10,9 @@ sharing); each application has its own KV-cache entries. The cache is
 allocated at ``max_len`` in prefill and updated in place by every decode
 step (the JAX version pads the K/V and returns a new cache). On CUDA the
 Mamba-2 prefill runs the SSD-scan kernel, the shared attention the
-flash-attention kernel in prefill and the flash-decode kernel in decode.
+flash-attention kernel in prefill and the flash-decode kernel in decode;
+training runs the SSD-scan kernel through ``ssm.SSDScanFn`` and the
+flash-attention kernel through ``FlashAttentionFn``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import transformer as tfm
@@ -49,6 +53,43 @@ def hybrid_defs(cfg: LMConfig) -> Dict:
     if tail:
         out["tail"] = tfm.stacked(blk, tail)
     return out
+
+
+def _group_fwd(cfg: LMConfig, gp: Dict, shared: Dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One group: its Mamba-2 blocks (``gp``'s leaves stacked over them),
+    then the shared attention block and the shared MLP."""
+    for bp in tfm.unbind_layers(gp, cfg.hybrid.attn_every):
+        x = mamba2_block_fwd(cfg, bp, x)
+    x = tfm.attn_block_fwd(cfg, shared, x, positions)
+    return tfm.ffn_block_fwd(cfg, shared, x)
+
+
+def forward(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
+            prefix_emb: Optional[torch.Tensor] = None, remat: bool = False,
+            return_hidden: bool = False):
+    """The training forward: the groups in order, each recomputed in the
+    backward with ``remat`` (``jax.checkpoint`` of the group in the JAX
+    package), then the tail blocks, which are not, then the final norm.
+    Returns (logits|hidden, aux = 0). The shared block's weights are used
+    once a group, so their gradient sums over the groups."""
+    x, positions = tfm.embed_tokens(cfg, params, tokens, prefix_emb)
+    n_groups, _, tail = hybrid_layout(cfg)
+    shared = params["shared_attn"]
+    for gp in tfm.unbind_layers(params["groups"], n_groups):
+        if remat:
+            x = checkpoint(_group_fwd, cfg, gp, shared, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _group_fwd(cfg, gp, shared, x, positions)
+    if tail:
+        for bp in tfm.unbind_layers(params["tail"], tail):
+            x = mamba2_block_fwd(cfg, bp, x)
+    x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return tfm.logits_fwd(cfg, params, x), aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,

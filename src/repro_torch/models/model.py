@@ -8,10 +8,9 @@
     logits, cache = decode_step(cfg, params, cache, tokens)
     cache  = init_cache(cfg, batch, max_len, device)
 
-Every family serves. The training ``forward`` runs the attention families
-but MoE (ROADMAP A11b); the hybrid and xLSTM ones are not ported yet
-(A11c, A11d). The cache is allocated once, in ``prefill``, and decode
-steps update its states in place.
+Every family serves and trains. The cache is allocated once, in
+``prefill``, and decode steps update its states in place; the training
+``forward`` writes nothing in place.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import hybrid as hyb
@@ -53,6 +53,35 @@ def _xlstm_defs(cfg: LMConfig) -> Dict:
         "unembed": ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                             dtype=cfg.dtype),
     }
+
+
+def _xlstm_pair(cfg: LMConfig, mp: Dict, sp: Dict,
+                x: torch.Tensor) -> torch.Tensor:
+    """One pair: its mLSTM blocks (``mp``'s leaves stacked over them),
+    then its sLSTM block."""
+    for bp in tfm.unbind_layers(mp, _xlstm_layout(cfg)[1]):
+        x = ssm_lib.mlstm_block_fwd(cfg, bp, x)
+    return ssm_lib.slstm_block_fwd(cfg, sp, x)
+
+
+def _xlstm_forward(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
+                   prefix_emb=None, remat=False, return_hidden=False):
+    """The training forward: the pairs in order, each recomputed in the
+    backward with ``remat`` (``jax.checkpoint`` of the pair in the JAX
+    package), then the final norm; the aux loss is 0."""
+    x, _ = tfm.embed_tokens(cfg, params, tokens, prefix_emb)
+    n_pairs, _ = _xlstm_layout(cfg)
+    for mp, sp in zip(tfm.unbind_layers(params["m"], n_pairs),
+                      tfm.unbind_layers(params["s"], n_pairs)):
+        if remat:
+            x = checkpoint(_xlstm_pair, cfg, mp, sp, x, use_reentrant=False)
+        else:
+            x = _xlstm_pair(cfg, mp, sp, x)
+    x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return tfm.logits_fwd(cfg, params, x), aux
 
 
 def _xlstm_init_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -155,11 +184,11 @@ def forward(cfg: LMConfig, params, tokens, prefix_emb=None, remat=False,
         return tfm.forward(cfg, params, tokens, prefix_emb, remat,
                            return_hidden)
     if cfg.family == "ssm":
-        raise NotImplementedError("xLSTM training is not ported yet: "
-                                  "ROADMAP A11d")
+        return _xlstm_forward(cfg, params, tokens, prefix_emb, remat,
+                              return_hidden)
     if cfg.family == "hybrid":
-        raise NotImplementedError("hybrid training (a backward for the SSD "
-                                  "scan) is not ported yet: ROADMAP A11c")
+        return hyb.forward(cfg, params, tokens, prefix_emb, remat,
+                           return_hidden)
     raise ValueError(cfg.family)
 
 

@@ -68,13 +68,29 @@ def _experts(cfg: LMConfig, p: Dict, x_e: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wo"])
 
 
+def _capacity(cfg: LMConfig, prio: torch.Tensor):
+    """Capacity selection from the priorities ``prio`` (T, E): G dispatch
+    groups of T/G tokens, capacity C/G per (group, expert). Returns the
+    gates and the tokens each expert takes, expert-major (E, G·Cg), so
+    that each weight is one batched product over experts. Ties between
+    zero priorities may pick other tokens than jax.lax.top_k does, and
+    those slots carry a zero gate."""
+    T, E = prio.shape
+    G = max(1, min(cfg.moe.dispatch_groups, T))
+    Cg = max(1, expert_capacity(cfg, T) // G)
+    gates, tok = torch.topk(prio.view(G, T // G, E).transpose(1, 2), Cg,
+                            dim=-1)                              # (G, E, Cg)
+    tok = tok + (torch.arange(G, device=prio.device) * (T // G))[:, None, None]
+    return (gates.transpose(0, 1).reshape(E, G * Cg),
+            tok.transpose(0, 1).reshape(E, G * Cg))
+
+
 def moe_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor) \
         -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (out (b, s, d), aux_loss scalar)."""
     m = cfg.moe
     b, s, d = x.shape
     T, E, k = b * s, m.num_experts, m.top_k
-    C = expert_capacity(cfg, T)
     xf = x.reshape(T, d)
     probs, top_p, top_idx = _route(cfg, p, xf)
 
@@ -82,18 +98,7 @@ def moe_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor) \
     # expert e is in token t's top-k, else 0
     prio = torch.zeros(T, E, dtype=torch.float32, device=x.device) \
         .scatter_(1, top_idx, top_p)
-
-    # capacity selection: G dispatch groups of T/G tokens, capacity C/G
-    # per (group, expert); ties between zero priorities may pick other
-    # tokens than jax.lax.top_k does, and those slots carry a zero gate
-    G = max(1, min(m.dispatch_groups, T))
-    Cg = max(1, C // G)
-    gates, tok = torch.topk(prio.view(G, T // G, E).transpose(1, 2), Cg,
-                            dim=-1)                              # (G, E, Cg)
-    tok = tok + (torch.arange(G, device=x.device) * (T // G))[:, None, None]
-    # expert-major (E, G·Cg): one batched product per weight over experts
-    tok = tok.transpose(0, 1).reshape(E, G * Cg)
-    gates = gates.transpose(0, 1).reshape(E, G * Cg)
+    gates, tok = _capacity(cfg, prio)
     y_e = _experts(cfg, p, xf[tok])                              # (E, G·Cg, d)
 
     # combine in fp32, cast once. Each picked (token, expert) pair owns the

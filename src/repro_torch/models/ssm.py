@@ -4,7 +4,10 @@
 The chunked SSD scan is ``repro_torch.kernels.ssd_scan``: for CUDA tensors
 the hand-written kernel, for CPU tensors its plain version, which follows
 the JAX package's ``ssd_scan`` step for step. The tensors' device decides,
-and a CUDA tensor never takes the plain path. ``mamba2_decode_step`` is a
+and a CUDA tensor never takes the plain path forward. Training goes
+through ``SSDScanFn``: the same forward, and a backward that
+differentiates the plain version, as the JAX package differentiates its
+``ssd_scan``. ``mamba2_decode_step`` is a
 one-token recurrence (the JAX package has no kernel for it) and updates
 the state and the conv window in place, so no step synchronises the host.
 
@@ -12,7 +15,9 @@ The xLSTM cells are plain torch, as they are plain JAX in the reference
 (no Pallas kernel): the mLSTM in the stabilised chunkwise-parallel form,
 a Python loop over chunks carrying the running-max stabiliser; the sLSTM
 as a time scan, one step per token, issued eagerly. Their functions
-return new states; the model writes them into its cache.
+return new states and write nothing in place; the model writes them into
+its cache. The mLSTM's normaliser floor exp(-m) is capped below fp32's
+overflow, where the reference's gradient turns NaN (ROADMAP C8).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.layers import (ParamDef, mlp_defs, mlp_fwd,
                                        norm_defs, rmsnorm)
 
@@ -70,6 +76,45 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out.transpose(1, 2).contiguous() + b
 
 
+class SSDScanFn(torch.autograd.Function):
+    """The chunked SSD scan with a backward, for training.
+
+    The forward is ``kernels.ops.ssd_bshn``: the SSD-scan kernel for CUDA
+    tensors, its plain version for CPU ones. The backward, the same code
+    on both devices, recomputes the plain version from the saved inputs
+    and differentiates it: the JAX package's gradient, autodiff of its
+    pure-JAX ``ssd_scan``, with the same bf16 roundings. x, B and C are
+    saved as they come, column views of the conv output, not copies. The
+    final state's incoming gradient is None when the state is unused (in
+    training) and counts as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int, init_state=None):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        return ops.ssd_bshn(x, dt, A, B, C, chunk=chunk,
+                            init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        wants = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(w)
+                   for t, w in zip(ctx.saved_tensors, wants)]
+            y, state = ssd_scan_plain(*ins[:5], ctx.chunk, ins[5])
+            outs = [(o, g) for o, g in ((y, dy), (state, dstate))
+                    if g is not None]
+            need = [t for t in ins if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in outs], need, [g for _, g in outs],
+                allow_unused=True) if outs else [None] * len(need))
+        dx, ddt, dA, dB, dC, dinit = (
+            next(got) if t is not None and t.requires_grad else None
+            for t in ins)
+        return dx, ddt, dA, dB, dC, None, dinit
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int,
              init_state: Optional[torch.Tensor] = None):
@@ -77,8 +122,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x: (b, s, nh, hd); dt: (b, s, nh); A: (nh,) (negative);
     B, C: (b, s, g, n) with nh % g == 0.
-    Returns (y (b, s, nh, hd), final_state (b, nh, hd, n)).
+    Returns (y (b, s, nh, hd), final_state (b, nh, hd, n)). Through
+    ``SSDScanFn`` when a gradient is wanted, else the kernel's wrapper.
     """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, init_state)):
+        return SSDScanFn.apply(x, dt, A, B, C, chunk, init_state)
     return ops.ssd_bshn(x, dt, A, B, C, chunk=chunk, init_state=init_state)
 
 
@@ -202,6 +252,17 @@ def _headwise_rmsnorm(y: torch.Tensor, w: torch.Tensor, nh: int,
     return (yn * w.float()).to(y.dtype)
 
 
+def _exp_floor(m: torch.Tensor) -> torch.Tensor:
+    """exp(-m), the normaliser's floor, with -m capped at 88, below fp32's
+    overflow at 88.72. Where the reference's exp(-m) overflows to inf (a
+    stabiliser m below -88.7: every log input gate so far that low), h is
+    num / inf = 0, and the backward multiplies the zero gradient there by
+    exp(-m) = inf, which is NaN (ROADMAP C8). Capped, the floor is 1.7e38:
+    h is 0 to within 1e-38 and its gradient is 0, the limit of the
+    reference's num * exp(m)."""
+    return torch.exp(torch.clamp_max(-m, 88.0))
+
+
 def mlstm_chunkwise(q, k, v, li, lf, chunk: int, init=None):
     """Stabilised chunkwise mLSTM.
 
@@ -255,7 +316,7 @@ def mlstm_chunkwise(q, k, v, li, lf, chunk: int, init=None):
         num = w_inter[..., None] * torch.einsum("blhd,bhde->blhe", qf, C) \
             + torch.einsum("blmh,bmhe->blhe", ws, vf)
         den = w_inter * torch.einsum("blhd,bhd->blh", qf, n) + ws.sum(2)
-        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None])
+        hs.append(num / torch.maximum(den.abs(), _exp_floor(m_i))[..., None])
         # state update to the end of the chunk
         m_new = torch.maximum(m + Ftot_c, g_c.amax(1))         # (b, nh)
         sc_old = torch.exp(m + Ftot_c - m_new)

@@ -8,8 +8,8 @@ kernel in every decode step; nothing here synchronises the host.
 
 ``forward`` is the training forward: attention through ``FlashAttentionFn``
 (the kernel with its row log-sum-exp on CUDA, and a written-out flash
-backward), each block optionally recomputed in the backward (``remat``).
-MoE training is not ported yet (ROADMAP A11b).
+backward), each block optionally recomputed in the backward (``remat``),
+the MoE blocks' aux losses summed over the layers.
 """
 from __future__ import annotations
 
@@ -143,13 +143,13 @@ def attn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
 
 def block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One training block: (x, the block's aux loss, 0 without MoE)."""
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE training (the router's aux-loss gradient) is not ported "
-            "yet: ROADMAP A11b")
+    """One training block: (x, the block's aux loss: the MoE router's
+    Switch loss, 0 without MoE)."""
     x = attn_block_fwd(cfg, p, x, positions)
     h = norm(x, p["mlp_norm"], cfg.norm_type, cfg.norm_eps)
+    if cfg.moe:
+        y, aux = moe_lib.moe_fwd(cfg, p["moe"], h)
+        return x + y, aux
     return x + mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -289,6 +289,12 @@ class HeteroServeEngine:
         return self.telemetry if self.telemetry is not None \
             else telemetry_mod.OFF
 
+    def telemetry_snapshot(self) -> Optional[Dict]:
+        """Merged metrics + trace snapshot, or None when uninstrumented."""
+        if self.telemetry is None:
+            return None
+        return self.telemetry.snapshot()
+
     def serve(self, n_requests: int) -> ServeReport:
         sched = self._build_scheduler(max_chunk=n_requests)
         res = sched.run(0, n_requests)

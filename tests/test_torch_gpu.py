@@ -491,3 +491,111 @@ def test_trainer_steps_without_a_host_sync_repeat_the_synchronised_bits():
     loss_free, w_free = run(False)
     assert loss_free == loss_sync
     assert all(torch.equal(a, b) for a, b in zip(w_free, w_sync))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_fn_trains_through_the_kernel():
+    """``SSDScanFn`` as training runs it, under a checkpoint: K3 launches
+    exactly twice a call (forward and recompute), and dx, ddt, dA, dB, dC
+    (bf16 for bf16 inputs, fp32 for dt and A) lie within 2e-2 of their
+    largest entry from autograd through the plain version in fp32 (the
+    bf16 tolerance: bf16 rounds dy, the forward's three intermediates and
+    the bf16 gradients). Ragged (200 at chunk 64), and with groups."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models.ssm import SSDScanFn
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for b, s, nh, g, chunk in [(2, 200, 8, 1, 64), (1, 256, 8, 2, 128)]:
+            P = N = 64
+            conv = torch.randn(b, s, nh * P + 2 * g * N, generator=gen,
+                               device=dev) * 0.5
+            dt = F.softplus(torch.randn(b, s, nh, generator=gen, device=dev))
+            A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.3)
+            dy = torch.randn(b, s, nh, P, generator=gen, device=dev) * 0.1
+
+            def grads(conv, dy, fn):
+                leaves = [t.detach().requires_grad_() for t in (conv, dt, A)]
+                c = leaves[0]
+                x = c[..., :nh * P].unflatten(-1, (nh, P))
+                B = c[..., nh * P:nh * P + g * N].unflatten(-1, (g, N))
+                C = c[..., nh * P + g * N:].unflatten(-1, (g, N))
+                y = fn(x, leaves[1], leaves[2], B, C)
+                return torch.autograd.grad(y, leaves, dy)
+
+            SSD.launches = 0
+            got = grads(conv.bfloat16(), dy.bfloat16(), lambda *a: checkpoint(
+                lambda *a: SSDScanFn.apply(*a, chunk, None)[0], *a,
+                use_reentrant=False))
+            torch.cuda.synchronize()
+            assert SSD.launches == 2
+            exp = grads(conv, dy, lambda *a: SSD.ssd_scan_plain(*a, chunk)[0])
+            assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                              torch.float32]
+            for name, g_, e in zip(("dconv", "ddt", "dA"), got, exp):
+                assert bool(torch.isfinite(g_).all()), name
+                err = (g_.float() - e).abs().max().item()
+                assert err <= 2e-2 * e.abs().max().item(), (name, err)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.gpu
+def test_moe_recompute_routes_as_the_forward_on_the_card():
+    """One bf16 grad_step of reduced granite-moe on the card (2 layers, 4
+    experts top-2; 4 x 64 tokens, so experts overflow), every router call
+    and capacity selection recorded: each layer's recompute in the
+    backward picks exactly the forward's experts and keeps exactly its
+    tokens, and every gradient is finite."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.train.train_step import grad_step
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced_config("granite-moe-1b-a400m")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in for_model(cfg, 64, 0).batch(0, 4).items()}
+    picks, kept = [], []
+    route, capacity = MOE._route, MOE._capacity
+
+    def recording_route(cfg_, p, xf):
+        out = route(cfg_, p, xf)
+        picks.append(out[2])
+        return out
+
+    def recording_capacity(cfg_, prio):
+        out = capacity(cfg_, prio)
+        kept.append(out[1])
+        return out
+
+    MOE._route, MOE._capacity = recording_route, recording_capacity
+    try:
+        grads, _ = grad_step(cfg, params, batch)
+    finally:
+        MOE._route, MOE._capacity = route, capacity
+    n = cfg.n_layers
+    assert len(picks) == len(kept) == 2 * n
+    for i in range(n):
+        assert torch.equal(picks[i], picks[2 * n - 1 - i]), i
+        assert torch.equal(kept[i], kept[2 * n - 1 - i]), i
+    assert all(bool(torch.isfinite(g).all()) for g in _leaves(grads))
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v

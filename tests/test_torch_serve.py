@@ -306,3 +306,44 @@ def test_launcher_serves_moe_and_xlstm_on_the_cpu(arch, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["requests"] == 4 and out["new_tokens"] == 12
     assert sum(out["per_group"].values()) == 4
+
+
+# ---------------------------------------------------------------------------
+# telemetry snapshots (ROADMAP C7)
+# ---------------------------------------------------------------------------
+
+def test_telemetry_snapshot_has_the_jax_engines_keys(tiny_cfgs):
+    """Both engines serve the same 8 requests on reduced stablelm with
+    telemetry on: the snapshots carry the same sections and, in each, the
+    same metric names (the values are timings and differ). Both return
+    None when uninstrumented."""
+    from repro import telemetry as jtel
+    from repro_torch import telemetry as ttel
+    cfg_j, cfg_t = tiny_cfgs
+    kw = dict(prompt_len=16, decode_tokens=4)
+    jeng = JaxServeEngine(
+        cfg_j, [JaxGroupDef("accel", JaxDeviceKind.ACCEL, fixed_chunk=4)],
+        telemetry=jtel.Telemetry(sample_rate=1.0), **kw)
+    teng = HeteroServeEngine(
+        cfg_t, [GroupDef("accel", DeviceKind.ACCEL, device=CPU,
+                         fixed_chunk=4)],
+        telemetry=ttel.Telemetry(sample_rate=1.0),
+        params=params_from_jax(cfg_t, jax.tree.map(np.asarray, jeng.params),
+                               CPU), **kw)
+    jeng.serve(8)
+    teng.serve(8)
+    snap_j, snap_t = jeng.telemetry_snapshot(), teng.telemetry_snapshot()
+    assert snap_t.keys() == snap_j.keys()
+    for section, entries in snap_j.items():
+        if isinstance(entries, dict):
+            assert snap_t[section].keys() == entries.keys(), section
+    chunks = 'sched.chunks{group="accel"}'
+    assert snap_t["counters"][chunks] == snap_j["counters"][chunks] == 2
+    off_j = JaxServeEngine(
+        cfg_j, [JaxGroupDef("accel", JaxDeviceKind.ACCEL, fixed_chunk=4)],
+        telemetry=jtel.OFF, **kw)
+    off_t = HeteroServeEngine(
+        cfg_t, [GroupDef("accel", DeviceKind.ACCEL, device=CPU,
+                         fixed_chunk=4)], telemetry=ttel.OFF, **kw)
+    assert off_j.telemetry_snapshot() is None
+    assert off_t.telemetry_snapshot() is None

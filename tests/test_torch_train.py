@@ -400,17 +400,6 @@ def test_tune_accel_chunk_picks_a_tried_chunk():
     assert g in (4, 8) and tr.groups[0].fixed_chunk == g
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "A11b"),
-                                       ("zamba2-1.2b", "A11c"),
-                                       ("xlstm-350m", "A11d")])
-def test_families_not_ported_for_training_say_so(arch, item):
-    cfg = get_reduced_config(arch).replace(dtype="float32")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=item):
-        TM.forward(cfg, params, tokens)
-
-
 def test_cuda_trainer_refuses_float32_before_placing_weights():
     cfg = get_reduced_config("stablelm-1.6b").replace(dtype="float32")
     with pytest.raises(ValueError, match="bfloat16"):

@@ -12,9 +12,10 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 2. each kernel against its plain PyTorch version on the card, in bf16 at
    the serving paths' shapes (K1 at each model's prefill: main, ragged,
-   gqa, d96, gqa8_d128, gqa2; K2 at each model's decode: main, ragged, gqa,
-   d96, gqa8_d128, b1, gqa2; K3 at zamba2's): max abs error and tolerance,
-   two times per
+   gqa, d96, gqa8_d128, gqa2, and bulk64, phase 15a's chunk of 64; K2 at
+   each model's decode: main, ragged, gqa, d96, gqa8_d128, b1, gqa2, and
+   bulk64, every split count of its sweep held too; K3 at zamba2's): max
+   abs error and tolerance, two times per
    call (``ms``: the device alone, many calls captured in one CUDA graph
    and replayed between CUDA events; ``back_to_back_ms``: the same calls
    issued from Python, so the wrapper's host cost is in it), the bound
@@ -132,7 +133,35 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       forward), zamba2-1.2b (38 layers; a chunk launches K3 2 x 36
       + 2, the tail blocks not being recomputed, and K1 2 x 6) and
       xlstm-350m (12 pairs, 3 steps of 16 examples of 256 tokens; no
-      kernel launch).
+      kernel launch);
+15. the paper's core, run after phase 9 on phase 4's weights:
+   a. the Bulk-Oracle baseline at full width: ``BulkScheduler.run(0, 64,
+      1.0)`` over the engine's executor (group ``accel`` alone on cuda:0)
+      on stablelm-1.6b, phase 4's 64 requests in one bulk chunk, so K1
+      and K2 at b = 64: every request once, K1 exactly 24 and K2 24 x 15,
+      every split ticket back at zero; beside it, warm, ``serve(64)``
+      with ``accel:chunk=8:async=2`` (bulk, dynamic, bulk, dynamic), with
+      wall time, tok/s, peak memory, the accel group's O_sp, O_hd, O_kl,
+      O_td, O_dh, and energy and EDP modelled at the card's power limit,
+      and the share of requests whose tokens equal across the two; then
+      phase 3's check at b = 64 (the first 2 layers, 64 prompts of 512,
+      kernels against plain versions, max |dlogit| <= 5e-2 max |logit|),
+      and the bulk chunk of 64 once more with the plain versions, whose
+      tokens are held beside the kernels' and the dynamic run's;
+   b. the paper's comparison on phase 5's configuration (reduced
+      stablelm-1.6b, accel on cuda:0 + cpu0 on the CPU, 64 x 128 + 16):
+      ``BulkScheduler.oracle(0, 64)``, all eleven splits, each covering
+      the 64 requests once with the accelerator given int(64 frac), the
+      last 64 / 0, launches exact over the sweep, between two dynamic
+      ``serve(64)`` runs; time, items and modelled EDP (cpu0 at 65 / 10
+      W) a split, and dynamic normalised to the best split;
+   c. ``examples/torch`` serve_hetero, observe and train_hetero_lm (20
+      steps) on cuda:0 with their CPU groups on the CPU, their own
+      assertions holding;
+   d. the memory plan: for every architecture at full width, the bytes
+      of its abstract parameters, AdamW state and each dry-run shape's
+      inputs and caches (meta tensors), and stablelm-1.6b's abstract
+      parameters against phase 4's materialised ones.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -301,15 +330,15 @@ def phase_kernels(dev):
 
     rows = {"flash_attention": {"shapes": {}}, "flash_decode": {"shapes": {}}}
     # K1 at the prefill shapes of the five attention models served (b=8),
-    # causal
+    # causal, and at phase 15a's bulk chunk of 64
     fa_err = 0.0
-    for name, sq, h, kvh, d in [("main", 512, 32, 32, 64),
-                                ("ragged", 1000, 32, 32, 64),
-                                ("gqa", 512, 32, 8, 64),
-                                ("d96", 656, 32, 32, 96),
-                                ("gqa8_d128", 512, 32, 4, 128),
-                                ("gqa2", 512, 16, 8, 64)]:
-        b = 8
+    for name, b, sq, h, kvh, d in [("main", 8, 512, 32, 32, 64),
+                                   ("ragged", 8, 1000, 32, 32, 64),
+                                   ("gqa", 8, 512, 32, 8, 64),
+                                   ("d96", 8, 656, 32, 32, 96),
+                                   ("gqa8_d128", 8, 512, 32, 4, 128),
+                                   ("gqa2", 8, 512, 16, 8, 64),
+                                   ("bulk64", 64, 512, 32, 32, 64)]:
         q, k, v = rnd(b, sq, h, d), rnd(b, sq, kvh, d), rnd(b, sq, kvh, d)
         out = FA.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
@@ -341,20 +370,23 @@ def phase_kernels(dev):
     rows["flash_attention"]["max_abs_err"] = fa_err
 
     # K2 against a 1024-row cache at the decode shapes of the served models
+    # and of phase 15a's bulk chunk of 64 (its 15 steps read 512-527 rows);
+    # lens: every row's kv_len, or a range (lo, hi) to draw each from
     fd_err = 0.0
     for name, b, h, kvh, d, lens in [("main", 8, 32, 32, 64, 520),
-                                     ("ragged", 8, 32, 32, 64, None),
-                                     ("gqa", 8, 32, 8, 64, None),
+                                     ("ragged", 8, 32, 32, 64, (1, 1025)),
+                                     ("gqa", 8, 32, 8, 64, (1, 1025)),
                                      ("d96", 8, 32, 32, 96, 664),
                                      ("gqa8_d128", 8, 32, 4, 128, 520),
                                      ("b1", 1, 32, 32, 64, 520),
-                                     ("gqa2", 8, 16, 8, 64, 520)]:
+                                     ("gqa2", 8, 16, 8, 64, 520),
+                                     ("bulk64", 64, 32, 32, 64, (512, 528))]:
         S = 1024
         q, kc, vc = rnd(b, 1, h, d), rnd(b, S, kvh, d), rnd(b, S, kvh, d)
-        if lens is not None:
+        if isinstance(lens, int):
             kv_len = torch.full((b,), lens, dtype=torch.int32, device=dev)
         else:
-            kv_len = torch.randint(1, S + 1, (b,), generator=gen,
+            kv_len = torch.randint(*lens, (b,), generator=gen,
                                    device=dev, dtype=torch.int32)
         out = FD.flash_decode(q, kc, vc, kv_len)
         torch.cuda.synchronize()
@@ -378,10 +410,19 @@ def phase_kernels(dev):
         n_split = FD.split_count(
             b, kvh, S, torch.cuda.get_device_properties(dev)
             .multi_processor_count)
-        # the device time at other split counts, for the split policy
-        sweep = {n: graph_ms(lambda: FD.flash_decode(q, kc, vc, kv_len,
-                                                     n_split=n), 200)
-                 for n in (1, 2, 4, 8, 16)}
+        # the device time at other split counts, for the split policy;
+        # each count held against the plain version too
+        sweep = {}
+        for n in (1, 2, 4, 8, 16):
+            got = FD.flash_decode(q, kc, vc, kv_len, n_split=n)
+            d_err = (got.float() - exp.float()).abs().max().item()
+            if not torch.allclose(got.float(), exp.float(), rtol=TOL,
+                                  atol=TOL):
+                raise AssertionError(f"flash_decode {name} n_split={n}: "
+                                     f"max abs err {d_err}")
+            fd_err = max(fd_err, d_err)
+            sweep[n] = graph_ms(lambda: FD.flash_decode(q, kc, vc, kv_len,
+                                                        n_split=n), 200)
         log(f"flash_decode {name}: b={b} S={S} H={h} KVH={kvh} D={d} "
             f"kv_len sum={rows_read} n_split={n_split} max_abs_err="
             f"{err:.3e} ({TOL_TEXT}) ms={ms:.4f} (back to back {b2b_ms:.4f})"
@@ -1876,6 +1917,377 @@ def phase_train_hetero(dev):
                              f"accel chunks")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's core (Bulk-Oracle against Dynamic, the examples on
+# the card, the memory plan)
+# ---------------------------------------------------------------------------
+
+OVERHEADS = ("O_sp", "O_hd", "O_kl", "O_td", "O_dh", "kernel_frac",
+             "n_chunks")
+#: cpu0's modelled power (active, idle W), the README's ``--power`` example
+CPU_POWER_W = (65.0, 10.0)
+BULK_REQUESTS = 64
+
+
+def _energy_model(watts, groups):
+    from repro_torch.core.energy import EnergyModel, PowerSpec
+    specs = {"accel": PowerSpec(active_w=watts, idle_w=0.0)}
+    if "cpu0" in groups:
+        specs["cpu0"] = PowerSpec(*CPU_POWER_W)
+    return EnergyModel(specs)
+
+
+def _run_out(time_s, overheads, energy, new_tokens, items):
+    """One run's line: wall time, tok/s, peak memory, the accel group's
+    offload fractions, and energy and EDP modelled from each group's
+    device-busy seconds (tg1 -> tg5 summed over its chunks: the fractions
+    O_hd + O_kl + kernel + O_dh of the wall time)."""
+    busy = {g: time_s * sum(ov.get(k, 0.0) for k in
+                            ("O_hd", "O_kl", "kernel_frac", "O_dh"))
+            for g, ov in overheads.items() if g != "all"}
+    rep = energy.energy(time_s, busy)
+    return {"time_s": time_s, "tok_per_s": new_tokens / max(time_s, 1e-9),
+            "items": items,
+            "accel_overheads": {k: overheads.get("accel", {}).get(k, 0.0)
+                                for k in OVERHEADS},
+            "busy_s": busy, "energy_j": rep.total_j, "edp_js": rep.edp,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _bulk_scheduler(eng):
+    """``BulkScheduler`` over the engine's own executors."""
+    from repro_torch.core import BulkScheduler, GroupSpec
+    return BulkScheduler(
+        {g.name: GroupSpec(g.name, g.kind) for g in eng.groups},
+        {g.name: eng._executor_for(g) for g in eng.groups})
+
+
+def _bulk_out(eng, res, energy):
+    """Checks one bulk run (every request once, the accelerator's share
+    int(n * frac), tokens in the vocabulary) and reports it."""
+    from repro_torch.core import OverheadLedger
+    n = BULK_REQUESTS
+    covered = sorted(i for r in res.records
+                     for i in range(r.token.chunk.begin, r.token.chunk.end))
+    if covered != list(range(n)):
+        raise AssertionError(f"bulk frac {res.frac}: requests covered "
+                             f"{covered}")
+    if res.per_group_items.get("accel", 0) != int(n * res.frac):
+        raise AssertionError(f"bulk frac {res.frac}: accel got "
+                             f"{res.per_group_items}")
+    tokens = {}
+    for r in res.records:
+        # a chunk's batch is padded to a power of two: its first rows
+        out = r.meta["result"]["tokens_out"][:r.token.chunk.size]
+        if out.shape != (r.token.chunk.size, eng.decode_tokens) \
+                or out.min() < 0 or out.max() >= eng.cfg.vocab:
+            raise AssertionError(f"bulk chunk {r.token.chunk}: bad tokens")
+        for i in range(r.token.chunk.size):
+            tokens[r.token.chunk.begin + i] = out[i]
+    ledger = OverheadLedger()
+    ledger.add_many(res.records)
+    overheads = {g.name: ledger.report(res.total_time, g.name)
+                 for g in eng.groups}
+    out = _run_out(res.total_time, overheads, energy,
+                   n * eng.decode_tokens, dict(res.per_group_items))
+    out["frac"] = res.frac
+    return out, tokens
+
+
+def _dynamic_out(eng, energy):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    rep = eng.serve(BULK_REQUESTS)
+    counts = _launches()
+    torch.cuda.synchronize()
+    if rep.requests != BULK_REQUESTS \
+            or sorted(rep.tokens_out) != list(range(BULK_REQUESTS)):
+        raise AssertionError(f"dynamic run incomplete: {rep}")
+    out = _run_out(rep.time_s, rep.overheads, energy, rep.new_tokens,
+                   dict(rep.per_group_items))
+    out["launches"] = counts
+    return out, rep.tokens_out
+
+
+def phase_bulk_full_width(dev, cfg, params, watts):
+    """15a: ``BulkScheduler.run(0, 64, 1.0)`` over the engine's executor
+    (group ``accel`` alone on cuda:0, ``async_depth=2``) on full-width
+    stablelm-1.6b (phase 4's weights), 64 requests of 512 prompt + 16
+    decode tokens in one bulk chunk, max_len 1024: K1 and K2 at b = 64.
+    Beside it, warm, ``serve(64)`` with ``accel:chunk=8:async=2`` on the
+    same engine: bulk, dynamic, bulk, dynamic, after one bulk warm-up.
+    Launches exact for every run, every split ticket back at zero."""
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    energy = _energy_model(watts, ())
+    eng = HeteroServeEngine(
+        cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2)],
+        prompt_len=JOB_PROMPT, decode_tokens=JOB_DECODE, seed=0,
+        params=params)
+    bulk = _bulk_scheduler(eng)
+    _bulk_out(eng, bulk.run(0, BULK_REQUESTS, 1.0), energy)    # warm-up
+    runs, tokens = {"bulk": [], "dynamic": []}, {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        res = bulk.run(0, BULK_REQUESTS, 1.0)
+        bulk_counts = _launches()
+        torch.cuda.synchronize()
+        out, tokens["bulk"] = _bulk_out(eng, res, energy)
+        out["launches"] = bulk_counts
+        _expect_launches(bulk_counts, 1, cfg.n_layers)
+        if any(int(t.abs().sum()) for t in FD._counters.values()):
+            raise AssertionError("a split-merge ticket was left set")
+        runs["bulk"].append(out)
+        out, tokens["dynamic"] = _dynamic_out(eng, energy)
+        _expect_launches(out["launches"],
+                         out["accel_overheads"]["n_chunks"], cfg.n_layers)
+        runs["dynamic"].append(out)
+    log(f"15a bulk frac 1.0 against dynamic ({cfg.arch_id}, full width, "
+        f"64 x {JOB_PROMPT} + {JOB_DECODE}, energy {MODELLED}, "
+        f"{watts} W): " + json.dumps(runs))
+    bulk_reference(dev, cfg, params)
+    # the bulk chunk once more with the plain versions in the kernels'
+    # place: the witness for how far bf16 alone moves the greedy tokens
+    _zero_launches()
+    with plain_kernels():
+        res = bulk.run(0, BULK_REQUESTS, 1.0)
+    if sum(_launches().values()):
+        raise AssertionError(f"plain bulk run launched {_launches()}")
+    tokens["plain bulk"] = _bulk_out(eng, res, energy)[1]
+
+    def same(a, b):
+        """Share of requests whose 16 tokens are all equal, share whose
+        first (the prefill's) is, and the mean index of the first token
+        that differs (16 where none does)."""
+        first = []
+        for i in range(BULK_REQUESTS):
+            d = torch.as_tensor(tokens[a][i] != tokens[b][i]).nonzero()
+            first.append(int(d[0]) if len(d) else JOB_DECODE)
+        return (f"{sum(f == JOB_DECODE for f in first) / BULK_REQUESTS:.4f}"
+                f" (first token {sum(f > 0 for f in first) / BULK_REQUESTS:.4f}"
+                f", first difference at {sum(first) / BULK_REQUESTS:.2f})")
+    log(f"15a requests whose 16 tokens are equal (bf16: reported, not "
+        f"asserted): bulk vs dynamic (b 64 vs 8, kernels) "
+        f"{same('bulk', 'dynamic')}, bulk vs plain bulk (b 64, kernels vs "
+        f"plain versions) {same('bulk', 'plain bulk')}, plain bulk vs "
+        f"dynamic {same('plain bulk', 'dynamic')}")
+    return runs["bulk"][0]["launches"]
+
+
+def bulk_reference(dev, cfg, params):
+    """Phase 3's check at the bulk chunk's shapes: the first 2 layers of
+    ``cfg`` on 64 prompts of 512 tokens, max_len 1024, prefill + 4
+    greedy decode steps through the kernels (K1 at b = 64, S = 512; K2 at
+    b = 64 against 1024 rows, kv_len 512-516) against the kernels' plain
+    versions fed the kernel run's greedy tokens (so that one flipped
+    argmax does not feed the two runs different tokens), tolerance max
+    |dlogit| <= 5e-2 max |logit|; and, as phase 6 holds zamba2, the
+    kernel run no farther from an fp32 run of the plain versions on the
+    same tokens than 1.5 times the plain bf16 run is."""
+    cfg2, params2 = first_blocks(2)(cfg, params)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (BULK_REQUESTS, JOB_PROMPT),
+                           generator=gen, dtype=torch.int32).to(dev)
+    _zero_launches()
+    got, toks = greedy_run(cfg2, params2, prompt, 1024)
+    counts = _launches()
+    if counts != {"flash_attention": 2, "flash_decode": 8, "ssd_scan": 0}:
+        raise AssertionError(f"the b = 64 check's launches: {counts}")
+    with no_tf32(), plain_kernels():
+        plain, plain_toks = greedy_run(cfg2, params2, prompt, 1024, toks)
+        ref, _ = greedy_run(cfg2.replace(dtype="float32"),
+                            _map(lambda t: t.float(), params2), prompt,
+                            1024, toks)
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits through the kernels")
+    rel = rel_err(got, plain)
+    by_step = [rel_err(got[i], plain[i]) for i in range(got.shape[0])]
+    equal = (toks == plain_toks).float().mean().item()
+    log(f"15a reference check at b = 64 ({cfg.arch_id} widths, 2 layers, "
+        f"prompt {JOB_PROMPT}, max_len 1024, 4 decode steps, bf16): "
+        f"kernels vs plain versions, max |dlogit| / max |logit| = "
+        f"{rel:.3e} (tol 5e-2; by step "
+        + ", ".join(f"{e:.3e}" for e in by_step)
+        + f"), greedy tokens equal {equal:.3f}; from the fp32 run: kernels "
+        f"{rel_err(got, ref):.3e}, plain versions {rel_err(plain, ref):.3e}")
+    if rel > 5e-2:
+        raise AssertionError(f"b = 64 logits off: max rel err {rel}")
+    if not rel_err(got, ref) <= 1.5 * rel_err(plain, ref):
+        raise AssertionError(f"b = 64 logits off: {rel_err(got, ref)} from "
+                             f"fp32 against the plain bf16 run's "
+                             f"{rel_err(plain, ref)}")
+
+
+def phase_oracle_sweep(dev, watts):
+    """15b: the paper's comparison on phase 5's configuration: reduced
+    stablelm-1.6b, ``accel:chunk=8:async=2`` on cuda:0 and ``cpu0`` on
+    the CPU, 64 requests of 128 prompt + 16 decode tokens.
+    ``BulkScheduler.oracle(0, 64)`` (all eleven splits) between two
+    dynamic ``serve(64)`` runs on the same groups; energy modelled with
+    the accel group at the card's limit and cpu0 at 65 / 10 W."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    cfg = reduced(get_config("stablelm-1.6b"))
+    groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2),
+              GroupDef("cpu0", DeviceKind.BIG, device=torch.device("cpu"))]
+    energy = _energy_model(watts, ("cpu0",))
+    eng = HeteroServeEngine(cfg, groups, prompt_len=128,
+                            decode_tokens=JOB_DECODE, seed=0)
+    dynamic = [_dynamic_out(eng, energy)[0]]
+    bulk = _bulk_scheduler(eng)
+    splits, run = [], bulk.run
+
+    def recording_run(begin, end, frac):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run(begin, end, frac)
+        torch.cuda.synchronize()
+        splits.append((res, _bulk_out(eng, res, energy)[0]))
+        return res
+
+    bulk.run = recording_run
+    _zero_launches()
+    best = bulk.oracle(0, BULK_REQUESTS)
+    counts = _launches()
+    dynamic.append(_dynamic_out(eng, energy)[0])
+    fracs = [res.frac for res, _ in splits]
+    if fracs != [k / 10 for k in range(11)]:
+        raise AssertionError(f"the sweep ran fracs {fracs}")
+    last = splits[-1][0].per_group_items
+    if last != {"accel": BULK_REQUESTS}:
+        raise AssertionError(f"the last split is {last}, not 64 / 0")
+    accel_runs = sum(1 for res, _ in splits if res.per_group_items.get(
+        "accel", 0))
+    _expect_launches(counts, accel_runs, cfg.n_layers)
+    (best_out,) = [out for res, out in splits if res is best]
+    rows = [{"frac": out["frac"], "time_s": out["time_s"],
+             "items": out["items"], "edp_js": out["edp_js"],
+             "accel_overheads": out["accel_overheads"]}
+            for _, out in splits]
+    log(f"15b oracle sweep (reduced stablelm-1.6b, accel on cuda:0 + cpu0, "
+        f"64 x 128 + 16, energy {MODELLED}, accel {watts} W, cpu0 "
+        f"{CPU_POWER_W[0]} / {CPU_POWER_W[1]} W): " + json.dumps(rows))
+    norm = [{"time": d["time_s"] / best_out["time_s"],
+             "energy": d["energy_j"] / max(best_out["energy_j"], 1e-12),
+             "edp": d["edp_js"] / max(best_out["edp_js"], 1e-12)}
+            for d in dynamic]
+    log(f"15b best split frac {best.frac} ({best_out['items']}): "
+        f"{json.dumps(best_out)}")
+    log(f"15b dynamic before / after the sweep: {json.dumps(dynamic)}")
+    log(f"15b dynamic normalised to the best Bulk-Oracle run (time, "
+        f"energy, EDP; < 1 means dynamic is better): {json.dumps(norm)}")
+    return counts
+
+
+def _load_example(name):
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(dev):
+    """15c: ``examples/torch`` serve_hetero, observe and train_hetero_lm
+    (20 steps) in this process, group accel on cuda:0 and cpu0 on the
+    CPU; their own assertions hold (train_hetero_lm: the loss falls), and
+    the accel group launched the kernels. Their temporary files go to a
+    directory removed afterwards."""
+    import tempfile
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        try:
+            for name, argv in (("serve_hetero", []), ("observe", []),
+                               ("train_hetero_lm", ["--steps", "20"])):
+                t0 = time.perf_counter()
+                _zero_launches()
+                _load_example(name).main(argv + ["--device", "cuda"])
+                counts[name] = _launches()
+                log(f"15c example {name} on cuda:0: "
+                    f"{time.perf_counter() - t0:.2f} s, launches "
+                    f"{counts[name]}")
+                if counts[name]["flash_attention"] < 1 or (
+                        name != "train_hetero_lm"
+                        and counts[name]["flash_decode"] < 1):
+                    raise AssertionError(f"example {name} ran no kernel")
+        finally:
+            tempfile.tempdir = None
+    return counts
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _described(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_described(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = (tuple(v.shape), v.dtype)
+    return out
+
+
+def phase_memory_plan(cfg, params):
+    """15d: for every architecture in the registry at full width, the
+    bytes of its abstract parameters (meta tensors: nothing allocated),
+    its AdamW state and each applicable dry-run shape's inputs and caches;
+    stablelm-1.6b's abstract parameters must have the leaf paths, shapes
+    and dtypes of phase 4's materialised ones."""
+    from repro_torch.configs.registry import dryrun_cells, list_archs, \
+        get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import abstract_opt_state
+    plan = {}
+    for arch in list_archs():
+        c = get_config(arch)
+        p = M.abstract_params(c)
+        plan[arch] = {"params": _nbytes(p),
+                      "adamw_state": _nbytes(abstract_opt_state(p))}
+    for c, shape, _, _ in dryrun_cells():
+        specs = M.input_specs(c, shape)
+        plan[c.arch_id][shape.name] = {
+            "inputs": _nbytes({k: v for k, v in specs.items()
+                               if k != "cache"}),
+            "cache": _nbytes(specs["cache"]) if "cache" in specs else 0}
+    log("15d memory plan (bytes; full width, meta tensors): "
+        + json.dumps(plan))
+    got, want = _described(M.abstract_params(cfg)), _described(params)
+    if got != want:
+        raise AssertionError(
+            f"{cfg.arch_id}: abstract parameters differ from the "
+            f"materialised ones at "
+            f"{sorted(set(got.items()) ^ set(want.items()))[:4]}")
+    log(f"15d {cfg.arch_id}: {len(got)} abstract leaves equal phase 4's "
+        f"materialised ones in path, shape and dtype")
+
+
+def phase_paper_core(dev, cfg, params, smi):
+    """Phase 15 (after phase 9, on phase 4's weights)."""
+    t0 = time.perf_counter()
+    watts = _power_limit_w(smi)
+    counts = {f"{cfg.arch_id} bulk": phase_bulk_full_width(dev, cfg, params,
+                                                           watts)}
+    counts["reduced stablelm-1.6b oracle sweep"] = phase_oracle_sweep(
+        dev, watts)
+    for name, c in phase_examples(dev).items():
+        counts[f"example {name}"] = c
+    phase_memory_plan(cfg, params)
+    log(f"phase 15: {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1889,6 +2301,7 @@ def main():
         {"flash_decode": cfg.n_layers})
     phase_hetero(dev, main_out)
     counts["stablelm-1.6b queued"] = phase_queued(dev, cfg, params, smi)
+    counts.update(phase_paper_core(dev, cfg, params, smi))
     del params
     free_model()
     cfg, params = full_width_model(dev, "zamba2-1.2b")

@@ -118,6 +118,21 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     return cache
 
 
+def cache_axes(cfg: LMConfig):
+    n_groups, k, tail = hybrid_layout(cfg)
+    ax = {
+        "ssm_state": (None, None, "cache_batch", "ssm_heads", None, None),
+        "conv": (None, None, "cache_batch", None, "conv_dim"),
+        "ak": (None, "cache_batch", "cache_seq", "cache_kv_heads", None),
+        "av": (None, "cache_batch", "cache_seq", "cache_kv_heads", None),
+        "pos": ("cache_batch",),
+    }
+    if tail:
+        ax["tail_state"] = (None, "cache_batch", "ssm_heads", None, None)
+        ax["tail_conv"] = (None, "cache_batch", None, "conv_dim")
+    return ax
+
+
 def _shared_attn_prefill(cfg: LMConfig, bp: Dict, x: torch.Tensor,
                          positions: torch.Tensor):
     h = norm(x, bp["attn_norm"], cfg.norm_type, cfg.norm_eps)

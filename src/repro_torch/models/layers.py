@@ -25,6 +25,17 @@ class ParamDef(NamedTuple):
     dtype: str = "bfloat16"
 
 
+def is_param_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def _map_defs(fn, defs):
+    """``fn`` on every ParamDef of a nested dict, in the dict's order."""
+    if is_param_def(defs):
+        return fn(defs)
+    return {k: _map_defs(fn, v) for k, v in defs.items()}
+
+
 def init_from_defs(defs, generator: torch.Generator, device) -> Dict:
     """Materialize a nested dict of ParamDef into tensors on ``device``.
 
@@ -34,20 +45,35 @@ def init_from_defs(defs, generator: torch.Generator, device) -> Dict:
     parity tests bring JAX weights over with ``repro_torch.bridge``.
     """
     device = torch.device(device)
-    if isinstance(defs, dict):
-        return {k: init_from_defs(v, generator, device)
-                for k, v in defs.items()}
-    d = defs
-    dt = _TORCH_DTYPES[d.dtype]
-    if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dt, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=dt, device=device)
-    fan_in = d.shape[0] if d.shape else 1
-    std = d.scale / math.sqrt(max(fan_in, 1))
-    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (x * std).to(device=device, dtype=dt)
+
+    def init(d: ParamDef) -> torch.Tensor:
+        dt = _TORCH_DTYPES[d.dtype]
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=device)
+        fan_in = d.shape[0] if d.shape else 1
+        std = d.scale / math.sqrt(max(fan_in, 1))
+        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * std).to(device=device, dtype=dt)
+
+    return _map_defs(init, defs)
+
+
+def abstract_from_defs(defs):
+    """Tensors on the meta device with each def's shape and dtype, the
+    counterpart of the JAX package's ShapeDtypeStruct tree: nothing is
+    allocated and no generator is drawn (the dry run's stand-ins)."""
+    def abstract(d: ParamDef) -> torch.Tensor:
+        return torch.empty(d.shape, dtype=_TORCH_DTYPES[d.dtype],
+                           device="meta")
+
+    return _map_defs(abstract, defs)
+
+
+def axes_from_defs(defs):
+    return _map_defs(lambda d: d.axes, defs)
 
 
 # ---------------------------------------------------------------------------

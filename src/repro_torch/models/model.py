@@ -6,7 +6,8 @@
     logits, aux   = forward(cfg, params, tokens, prefix_emb, remat=...)
     logits, cache = prefill(cfg, params, tokens, prefix_emb, max_len=...)
     logits, cache = decode_step(cfg, params, cache, tokens)
-    cache  = init_cache(cfg, batch, max_len, device)
+    cache  = init_cache(cfg, batch, max_len, device)   # "meta": abstract
+    specs  = input_specs(cfg, shape)               # meta-device stand-ins
 
 Every family serves and trains. The cache is allocated once, in
 ``prefill``, and decode steps update its states in place; the training
@@ -20,11 +21,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, ShapeSuite
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (ParamDef, init_from_defs, norm,
+from repro_torch.models.layers import (ParamDef, abstract_from_defs,
+                                       axes_from_defs, init_from_defs, norm,
                                        norm_defs)
 
 #: the attention families, served by ``transformer``; ``ssm`` (xLSTM) is
@@ -106,6 +108,19 @@ def _xlstm_init_cache(cfg: LMConfig, batch: int, max_len: int,
     }
 
 
+def _xlstm_cache_axes(cfg: LMConfig):
+    return {
+        "mC": (None, None, "cache_batch", "ssm_heads", None, None),
+        "mn": (None, None, "cache_batch", "ssm_heads", None),
+        "mm": (None, None, "cache_batch", "ssm_heads"),
+        "sc": (None, "cache_batch", "ssm_heads", None),
+        "sn": (None, "cache_batch", "ssm_heads", None),
+        "sh": (None, "cache_batch", "ssm_heads", None),
+        "sm": (None, "cache_batch", "ssm_heads", None),
+        "pos": ("cache_batch",),
+    }
+
+
 _M_STATE, _S_STATE = ("mC", "mn", "mm"), ("sc", "sn", "sh", "sm")
 
 
@@ -178,6 +193,16 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device) -> Dict:
     return init_from_defs(param_defs(cfg), generator, device)
 
 
+def abstract_params(cfg: LMConfig) -> Dict:
+    """The parameters as meta-device tensors: shapes and dtypes, nothing
+    allocated."""
+    return abstract_from_defs(param_defs(cfg))
+
+
+def param_axes(cfg: LMConfig) -> Dict:
+    return axes_from_defs(param_defs(cfg))
+
+
 def forward(cfg: LMConfig, params, tokens, prefix_emb=None, remat=False,
             return_hidden=False):
     if cfg.family in ATTN_FAMILIES:
@@ -217,6 +242,9 @@ def decode_step(cfg: LMConfig, params, cache, tokens):
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
+    """The zeroed caches on ``device``. On ``torch.device("meta")`` they
+    are abstract, the JAX package's ``init_cache(abstract=True)``: shapes
+    and dtypes, nothing allocated (the dry run's)."""
     if cfg.family in ATTN_FAMILIES:
         return tfm.init_cache(cfg, batch, max_len, device)
     if cfg.family == "ssm":
@@ -224,3 +252,55 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
     if cfg.family == "hybrid":
         return hyb.init_cache(cfg, batch, max_len, device)
     raise ValueError(cfg.family)
+
+
+def cache_axes(cfg: LMConfig):
+    if cfg.family in ATTN_FAMILIES:
+        return tfm.cache_axes(cfg)
+    if cfg.family == "ssm":
+        return _xlstm_cache_axes(cfg)
+    if cfg.family == "hybrid":
+        return hyb.cache_axes(cfg)
+    raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins: nothing is allocated)
+# ---------------------------------------------------------------------------
+
+def text_len(cfg: LMConfig, shape: ShapeSuite) -> int:
+    return shape.seq_len - cfg.prefix_len
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSuite) -> Dict:
+    """Abstract inputs for one (arch x shape) dry-run cell."""
+    B = shape.global_batch
+    meta = torch.device("meta")
+
+    def spec(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device=meta)
+
+    if shape.kind == "train":
+        s = text_len(cfg, shape)
+        specs = {"tokens": spec((B, s)), "labels": spec((B, s))}
+    elif shape.kind == "prefill":
+        specs = {"tokens": spec((B, text_len(cfg, shape)))}
+    else:  # decode / long_decode: one new token against a seq_len cache
+        specs = {"tokens": spec((B, 1)),
+                 "cache": init_cache(cfg, B, shape.seq_len, meta)}
+    if cfg.prefix_len and shape.kind in ("train", "prefill"):
+        specs["prefix_emb"] = spec((B, cfg.prefix_len, cfg.d_model),
+                                   cfg.activation_dtype)
+    return specs
+
+
+def input_axes(cfg: LMConfig, shape: ShapeSuite) -> Dict:
+    """Logical sharding axes matching :func:`input_specs`."""
+    if shape.kind in ("train", "prefill"):
+        axes = {"tokens": ("act_batch", "act_seq")}
+        if shape.kind == "train":
+            axes["labels"] = ("act_batch", "act_seq")
+        if cfg.prefix_len:
+            axes["prefix_emb"] = ("act_batch", "act_seq", "act_embed")
+        return axes
+    return {"tokens": ("act_batch", None), "cache": cache_axes(cfg)}

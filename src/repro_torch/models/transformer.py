@@ -226,6 +226,11 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def cache_axes(cfg: LMConfig):
+    ax = ("layers", "cache_batch", "cache_seq", "cache_kv_heads", None)
+    return {"k": ax, "v": ax, "pos": ("cache_batch",)}
+
+
 def prefill(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None):

@@ -80,6 +80,23 @@ def init_opt_state(params) -> Dict:
     }
 
 
+def abstract_opt_state(abstract_params) -> Dict:
+    """``init_opt_state``'s tree on the meta device: fp32 master, m and v
+    shaped as the parameters, and the 0-d int32 step."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {
+        "master": tree_map(f32, abstract_params),
+        "m": tree_map(f32, abstract_params),
+        "v": tree_map(f32, abstract_params),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
+def opt_state_axes(p_axes) -> Dict:
+    return {"master": p_axes, "m": p_axes, "v": p_axes, "step": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
                           for leaf in tree_leaves(tree)))

@@ -2,6 +2,7 @@
 ``repro.train.train_step``; each block is recomputed in the backward)."""
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Tuple
 
 import torch
@@ -46,3 +47,7 @@ def train_step(cfg: LMConfig, oc: OptConfig, params, opt, batch):
     params, opt, opt_metrics = adamw_update(oc, params, grads, opt)
     metrics.update(opt_metrics)
     return params, opt, metrics
+
+
+def make_train_step(cfg: LMConfig, oc: OptConfig):
+    return partial(train_step, cfg, oc)

@@ -1,6 +1,7 @@
 """Boundaries of the port: it imports nothing of JAX or of the JAX package.
 
-An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
+An AST scan of every module of ``src/repro_torch``, of the port's examples
+(``examples/torch/``) and of ``chip_smoke.py``
 fails on any import of ``jax``, ``ml_dtypes``, ``repro`` or ``repro.*``
 (``repro_torch`` itself is allowed). The machine with the card has neither
 JAX nor ml_dtypes, and the port keeps its own copy of what it needs.
@@ -13,6 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples" / "torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
@@ -60,3 +62,12 @@ def test_the_training_modules_are_scanned():
                 "launch/train.py", "data/pipeline.py",
                 "core/chunk_search.py"):
         assert f"src/repro_torch/{mod}" in rel, mod
+
+
+def test_the_paper_core_and_the_examples_are_scanned():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("core/oracle.py", "core/platforms.py", "core/simulate.py"):
+        assert f"src/repro_torch/{mod}" in rel, mod
+    for name in ("quickstart", "overhead_analysis", "serve_hetero",
+                 "train_hetero_lm", "observe"):
+        assert f"examples/torch/{name}.py" in rel, name

@@ -31,8 +31,10 @@ def test_cuda_kernels_match_plain():
         return torch.randn(*shape, generator=gen, device=dev) \
             .to(torch.bfloat16)
 
+    # the last: stablelm's prefill in a bulk chunk of 64
     for b, sq, h, kvh, d, off in [(2, 100, 4, 2, 16, 0), (2, 64, 8, 8, 64, 0),
-                                  (1, 33, 4, 1, 128, 7)]:
+                                  (1, 33, 4, 1, 128, 7),
+                                  (64, 512, 32, 32, 64, 0)]:
         q, k, v = rnd(b, sq, h, d), rnd(b, sq + off, kvh, d), \
             rnd(b, sq + off, kvh, d)
         out = FA.flash_attention(q, k, v, q_offset=off)
@@ -87,6 +89,7 @@ def test_flash_attention_every_head_dim_from_fused_qkv(d):
     (8, 1024, 32, 32, 96),      # phi-3-vision decode
     (8, 1024, 32, 4, 128),      # yi-6b decode, GQA 8:1
     (1, 1024, 32, 32, 64),      # batch 1: the cache split across blocks
+    (64, 1024, 32, 32, 64),     # stablelm's bulk chunk of 64: n_split 1
     (3, 200, 8, 4, 16),         # a short cache, GQA 2:1
 ])
 def test_flash_decode_split_kv(b, S, h, kvh, d):
@@ -591,6 +594,40 @@ def test_moe_recompute_routes_as_the_forward_on_the_card():
         assert torch.equal(picks[i], picks[2 * n - 1 - i]), i
         assert torch.equal(kept[i], kept[2 * n - 1 - i]), i
     assert all(bool(torch.isfinite(g).all()) for g in _leaves(grads))
+
+
+
+@pytest.mark.gpu
+def test_bulk_chunk_of_64_launches_exactly_once_a_layer():
+    """chip_smoke.py phase 15a at a 2-layer cut: ``BulkScheduler.run(0, 64,
+    1.0)`` over the engine's executor (group ``accel`` alone on cuda:0,
+    ``async_depth=2``) on stablelm-1.6b at full width, 64 prompts of 128
+    tokens and 16 decode tokens in one bulk chunk: every request served
+    once, flash-attention launched once a layer, flash-decode once a layer
+    a decode step, and every split ticket back at zero."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import BulkScheduler, DeviceKind, GroupSpec
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_config("stablelm-1.6b").replace(n_layers=2)
+    g = GroupDef("accel", DeviceKind.ACCEL, device=dev, async_depth=2)
+    eng = HeteroServeEngine(cfg, [g], prompt_len=128, decode_tokens=16)
+    bulk = BulkScheduler({"accel": GroupSpec("accel", DeviceKind.ACCEL)},
+                         {"accel": eng._executor_for(g)})
+    fa0, fd0 = FA.launches, FD.launches
+    res = bulk.run(0, 64, 1.0)
+    torch.cuda.synchronize()
+    assert res.per_group_items == {"accel": 64}
+    (rec,) = res.records
+    assert (rec.token.chunk.begin, rec.token.chunk.end) == (0, 64)
+    toks = rec.meta["result"]["tokens_out"]
+    assert toks.shape == (64, 16)
+    assert toks.min() >= 0 and toks.max() < cfg.vocab
+    assert FA.launches - fa0 == cfg.n_layers
+    assert FD.launches - fd0 == cfg.n_layers * 15
+    assert not any(int(t.abs().sum()) for t in FD._counters.values())
 
 
 def _leaves(tree):

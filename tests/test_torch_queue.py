@@ -54,7 +54,8 @@ REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 COPIED = sorted(
     [f"core/{m}.py" for m in ("types", "locks", "overheads", "throughput",
                               "partitioner", "scheduler", "energy",
-                              "chunk_search")]
+                              "chunk_search", "platforms", "simulate",
+                              "oracle")]
     + ["data/__init__.py", "data/pipeline.py"]
     + [f"telemetry/{m}.py" for m in ("__init__", "registry", "spans",
                                      "exporters")]
@@ -75,6 +76,11 @@ DIFFER = {
     "federation/service.py":
         "the same for the federation's own deferred pool, and _idle reads "
         "both counts (the reference reports drained with a job pending)",
+    "core/oracle.py":
+        "run raises when it would leave iterations to non-accel groups and "
+        "there are none (the reference drops them, ROADMAP C9), and oracle "
+        "sweeps k / round(1/step) so that its last split is exactly 1.0 "
+        "(the reference's f += step ends below it, C10)",
 }
 
 

@@ -88,7 +88,9 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    a. flash-attention writing its row log-sum-exp L at phase 2's shapes
       main, gqa, d96, gqa8_d128 and gqa2: L against the plain version's,
       the output with L bit for bit the output without it, the device
-      time with and without L;
+      time with and without L, and with L back to back, beside
+      ``aten._scaled_dot_product_flash_attention`` (output and L, the same
+      function; timed only, on GQA's kv heads repeated);
    b. the attention backward: ``FlashAttentionFn`` forward and backward
       in bf16 at stablelm's training shape (b 8, S 512, H 32, D 64) and
       at gqa8_d128, dq/dk/dv against autograd through the plain version in
@@ -161,7 +163,23 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    d. the memory plan: for every architecture at full width, the bytes
       of its abstract parameters, AdamW state and each dry-run shape's
       inputs and caches (meta tensors), and stablelm-1.6b's abstract
-      parameters against phase 4's materialised ones.
+      parameters against phase 4's materialised ones;
+16. (run last, in a child process, so that no process group meets the
+   phases before it) the sharding rules, the meshes and the dry run:
+   a. the power limit against ``launch.mesh.CHIP_ACTIVE_W`` and the idle
+      draw behind ``CHIP_IDLE_W``; ``make_group_meshes([1])`` on a real
+      one-rank process group over cuda:0 (a FileStore in a temporary
+      directory), one of phase 4's weights distributed on the (1, 1) mesh
+      by the rules' placements, a DTensor product against the plain one;
+   b. the dry-run CLI (``repro_torch.launch.dryrun``) on one cell per
+      family at full width, each on the 16 x 16 and 2 x 16 x 16 fake
+      meshes, every cell ok, with its bytes, FLOPs, collectives and
+      trace seconds;
+   c. the dry run of 13d's training chunk (stablelm-1.6b, 8 x 512, remat,
+      AdamW) on a (1, 1) fake mesh: its argument bytes equal the bytes of
+      the parameters, AdamW state and chunk of tokens and labels that
+      13d's trainer holds on the card, and its argument plus temp bytes
+      are printed beside 13d's measured peak.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. It needs one card, runs
@@ -182,8 +200,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
-BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 TOL = 2e-2                         # tests/test_kernels.py's bf16 tolerance
 TOL_TEXT = f"tol |diff| <= {TOL} + {TOL} |plain|"   # as torch.allclose
 #: the SSD scan's tolerance, relative to max |y| and max |state|: kernel
@@ -245,7 +261,11 @@ def times(fn, iters: int):
 
 
 def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    """(the least time in ms, what bounds it): the bytes over the card's
+    memory rate and the FLOPs over its dense bf16 peak, the constants of
+    ``repro_torch.launch.mesh``."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS_BF16
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -319,6 +339,7 @@ def phase_occupancy(dev):
 
 def phase_kernels(dev):
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
 
@@ -354,8 +375,8 @@ def phase_kernels(dev):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms, lib_b2b_ms = times(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=h != kvh), 50)
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d)
-        flops = 4 * b * h * d * (sq * (sq + 1) // 2)
+        nbytes = cost.attention_bytes(b, sq, sq, h, kvh, d)
+        flops = cost.attention_flops(b, sq, sq, h, d)
         b_ms, b_by = bound(nbytes, flops)
         log(f"flash_attention {name}: b={b} S={sq} H={h} KVH={kvh} D={d} "
             f"max_abs_err={err:.3e} ({TOL_TEXT}) ms={ms:.4f} (back to back "
@@ -404,8 +425,8 @@ def phase_kernels(dev):
         lib_ms, lib_b2b_ms = times(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh), 200)
         rows_read = int(kv_len.sum().item())
-        nbytes = 2 * (2 * b * h * d + 2 * rows_read * kvh * d) + 4 * b
-        flops = 4 * rows_read * h * d
+        nbytes = cost.decode_bytes(b, h, kvh, d, rows_read)
+        flops = cost.decode_flops(rows_read, h, d)
         b_ms, b_by = bound(nbytes, flops)
         n_split = FD.split_count(
             b, kvh, S, torch.cuda.get_device_properties(dev)
@@ -509,22 +530,12 @@ def kernel_variants(dev, gen):
         raise AssertionError(f"ssd_scan P={P} N={N}: {rel_y}, {rel_s}")
 
 
-def ssd_flops(b, s, nh, P, N, Q):
-    """The products the SSD scan needs: per chunk, the causal Q x Q blocks
-    (C.B^T and W.x over the lower triangle), C.S_in and the state
-    update."""
-    flops = 0
-    for c0 in range(0, s, Q):
-        L = min(Q, s - c0)
-        flops += b * nh * (L * (L + 1) // 2 * 2 * (N + P) + 4 * L * N * P)
-    return flops
-
-
 def ssd_rows(dev, gen):
     """K3 at the zamba2 prefill shape (b=8, 64 heads, P=N=64, chunk 128),
     x/B/C as column slices of one conv output, inputs scaled as
     tests/test_kernels.py::test_ssd_scan_sweep scales them."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ssd_scan as SSD
     row, max_err = None, 0.0
     for name, s, g, with_init in [("main", 512, 1, False),
@@ -556,10 +567,8 @@ def ssd_rows(dev, gen):
         ms, b2b_ms = times(lambda: SSD.ssd_scan(*args), 20)
         plain_ms = cuda_ms(lambda: SSD.ssd_scan_plain(*args), 3)
         # each input read once, each output written once
-        nbytes = 2 * (2 * b * s * nh * P + 2 * b * s * g * N) \
-            + 4 * (b * s * nh + nh) \
-            + 4 * b * nh * P * N * (2 if with_init else 1)
-        flops = ssd_flops(b, s, nh, P, N, Q)
+        nbytes = cost.ssd_bytes(b, s, nh, P, g, N, with_init)
+        flops = cost.ssd_flops(b, s, nh, P, N, Q)
         b_ms, b_by = bound(nbytes, flops)
         log(f"ssd_scan {name}: b={b} S={s} nh={nh} P={P} N={N} g={g} "
             f"Q={Q} init_state={with_init} max_abs_err y={err_y:.3e} "
@@ -1466,7 +1475,13 @@ SSD_BWD_TOL = 2e-2
 
 
 def phase_lse(dev):
-    """13a: K1 asked for its row log-sum-exp at phase 2's shapes."""
+    """13a: K1 asked for its row log-sum-exp at phase 2's shapes, timed on
+    the device alone and back to back beside the PyTorch call that
+    computes the same function, ``aten._scaled_dot_product_flash_attention``
+    (output and row log-sum-exp; the port never calls it), fed the (b, h,
+    s, d) layout it takes, with GQA's kv heads repeated to every query head
+    outside the timing."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(13)
     rows = {}
@@ -1492,17 +1507,35 @@ def phase_lse(dev):
             raise AssertionError(f"flash_attention {name}: L max abs err "
                                  f"{err}")
         ms = graph_ms(lambda: FA.flash_attention(q, k, v, causal=True), 50)
-        ms_l = graph_ms(lambda: FA.flash_attention(
+        ms_l, b2b_l = times(lambda: FA.flash_attention(
             q, k, v, causal=True, return_lse=True), 50)
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d) \
-            + 4 * b * h * sq
-        flops = 4 * b * h * d * (sq * (sq + 1) // 2)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+                  for x in (k, v))
+
+        def sdpa():
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, True)[:2]
+
+        lib_o, lib_l = sdpa()
+        lib_err = max((lib_o.transpose(1, 2).float() - out.float()).abs()
+                      .max().item(), (lib_l - lse).abs().max().item())
+        lib_ms, lib_b2b = times(sdpa, 50)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal=True, return_lse=True), 5)
+        nbytes = cost.attention_bytes(b, sq, sq, h, kvh, d, lse=True)
+        flops = cost.attention_flops(b, sq, sq, h, d)
         b_ms, b_by = bound(nbytes, flops)
         log(f"flash_attention with L {name}: b={b} S={sq} H={h} KVH={kvh} "
             f"D={d} L max_abs_err={err:.3e} (tol |diff| <= {LSE_TOL} + "
             f"{LSE_TOL} |plain|), output bit-equal without L; ms with "
-            f"L={ms_l:.4f} without={ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-        rows[name] = dict(ms=ms_l, ms_without_lse=ms, bound_ms=b_ms,
+            f"L={ms_l:.4f} (back to back {b2b_l:.4f}) without={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_with_lse_ms={lib_ms:.4f} (back to back {lib_b2b:.4f}; "
+            f"max |diff| from K1's o and L {lib_err:.3e}) "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        rows[name] = dict(ms=ms_l, back_to_back_ms=b2b_l, ms_without_lse=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, library_back_to_back_ms=lib_b2b,
+                          library_max_abs_diff=lib_err, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=err)
     return rows
 
@@ -1806,6 +1839,7 @@ def phase_ssd_backward(dev):
     plain version in fp32 (TF32 off), max |diff| / max |reference| <=
     SSD_BWD_TOL; timed on the device alone (a CUDA graph) and back to
     back, beside the fp32 autograd time and the bound."""
+    from repro_torch.kernels import cost
     import torch.nn.functional as F
     from torch.utils.checkpoint import checkpoint
     from repro_torch.kernels import ssd_scan as SSD
@@ -1864,7 +1898,7 @@ def phase_ssd_backward(dev):
     # the least work: the forward's products once and their backward, two
     # products for each; x, B, C, dt, A and dy read once, y never stored,
     # dx, dB, dC, ddt and dA written once
-    flops = 3 * ssd_flops(b, s, nh, P, N, Q)
+    flops = 3 * cost.ssd_flops(b, s, nh, P, N, Q)
     nbytes = 2 * 2 * (b * s * nh * P + 2 * b * s * g * N) \
         + 2 * b * s * nh * P + 2 * 4 * (b * s * nh + nh)
     b_ms, b_by = bound(nbytes, flops)
@@ -2288,6 +2322,193 @@ def phase_paper_core(dev, cfg, params, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharding rules, the meshes and the multi-pod dry run (run in
+# a child process, so that no process group meets the phases before it)
+# ---------------------------------------------------------------------------
+
+#: 16b: one dry-run cell per family, each on the 16 x 16 and 2 x 16 x 16
+#: meshes (the training cells take minutes on the 3-D mesh: see PERF.md)
+DRYRUN_CELLS = [("stablelm-1.6b", "prefill_32k"),
+                ("granite-moe-1b-a400m", "decode_32k"),
+                ("zamba2-1.2b", "long_500k"),
+                ("xlstm-350m", "prefill_32k"),
+                ("phi-3-vision-4.2b", "prefill_32k"),
+                ("musicgen-large", "decode_32k")]
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def phase_mesh(dev):
+    """16a: the card's power limit against ``CHIP_ACTIVE_W`` and its idle
+    draw (the measurement behind ``CHIP_IDLE_W``); then a real process
+    group of one rank on cuda:0 (a FileStore in a temporary directory):
+    ``make_group_meshes([1])`` is a (1, 1) mesh, one of phase 4's weights
+    is distributed on it by the rules' placements, and a DTensor product
+    equals the plain one."""
+    import os
+    import statistics
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.mesh import (CHIP_ACTIVE_W, CHIP_IDLE_W,
+                                         make_group_meshes)
+    from repro_torch.sharding import ShardingRules
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    if _power_limit_w(smi) != CHIP_ACTIVE_W:
+        raise AssertionError(f"power limit {smi} is not CHIP_ACTIVE_W "
+                             f"{CHIP_ACTIVE_W} W")
+    draws = []
+    for _ in range(10):
+        draws.append(float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0]))
+        time.sleep(0.2)
+    log(f"16a card {smi}: power limit equals CHIP_ACTIVE_W = "
+        f"{CHIP_ACTIVE_W} W; idle draw (power.draw, 10 samples over 2 s, "
+        f"nothing running): median {statistics.median(draws)} W, min "
+        f"{min(draws)} W, max {max(draws)} W (CHIP_IDLE_W = {CHIP_IDLE_W})")
+    cfg, params = full_width_model(dev, "stablelm-1.6b")
+    w = params["blocks"]["mlp"]["wi"][0]                  # (embed, mlp)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            (mesh,) = make_group_meshes([1], device_type="cuda")
+            if tuple(mesh.shape) != (1, 1) or tuple(
+                    mesh.mesh_dim_names) != ("data", "model"):
+                raise AssertionError(f"group mesh {mesh}")
+            rules = ShardingRules()
+            gen = torch.Generator(device=dev).manual_seed(16)
+            x = torch.randn(8, 512, cfg.d_model, generator=gen,
+                            device=dev).to(w.dtype)
+            wd = distribute_tensor(w, mesh, rules.placements(
+                mesh, ("embed", "mlp"), w.shape))
+            xd = distribute_tensor(x, mesh, rules.placements(
+                mesh, ("act_batch", "act_seq", "act_embed"), x.shape))
+            got = (xd @ wd).full_tensor()
+            want = x @ w
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"DTensor product differs from the plain one by "
+                    f"{(got.float() - want.float()).abs().max().item()}")
+            log(f"16a make_group_meshes([1]) on cuda:0: {mesh}; "
+                f"blocks/mlp/wi[0] {tuple(w.shape)} placed "
+                f"{tuple(wd.placements)}, x {tuple(x.shape)} placed "
+                f"{tuple(xd.placements)}: the DTensor product equals the "
+                f"plain one bit for bit")
+        finally:
+            dist.destroy_process_group()
+    del params, w, wd, x, xd
+    free_model()
+
+
+def phase_dryrun_cells():
+    """16b: the dry-run CLI on one cell per family, single and multi, at
+    full width; every cell ok."""
+    from repro_torch.launch import dryrun
+    for arch, shape in DRYRUN_CELLS:
+        argv = ["--arch", arch, "--shape", shape, "--mesh", "both",
+                "--no-hlo"]
+        if dryrun.main(argv) != 0:
+            raise AssertionError(f"dry run {arch} {shape} failed")
+        for mesh_kind in ("single", "multi"):
+            res = json.loads(dryrun.cell_path(arch, shape, mesh_kind)
+                              .read_text())
+            if res["status"] != "ok":
+                raise AssertionError(f"dry run {mesh_kind} {arch} {shape}: "
+                                     f"{res.get('error')}")
+            log(f"16b dry run {mesh_kind} {arch} {shape}: memory "
+                f"{json.dumps(res['memory'])} flops_per_device "
+                f"{res['flops_per_device']:.6e} collectives "
+                f"{json.dumps(res['collective_op_counts'])} trace_s "
+                f"{res['trace_s']} total_s {res['total_s']}")
+
+
+def phase_dryrun_vs_trainer(dev, measured_peak):
+    """16c: the dry run of 13d's training chunk (stablelm-1.6b, 8 x 512,
+    remat, AdamW) on a (1, 1) fake mesh predicts the argument bytes that
+    13d's trainer holds on the card: its parameters, AdamW state (master,
+    m, v and the step) and a chunk's tokens and labels; they must be
+    equal. Its argument plus temp bytes are printed beside 13d's measured
+    peak, a prediction, not a gate."""
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    shape = ShapeSuite("train_chunk_8x512", TRAIN_SEQ, 8, "train")
+    res = dryrun.run_cell("stablelm-1.6b", shape.name, "unit",
+                          save_hlo=False, shape=shape)
+    if res["status"] != "ok":
+        raise AssertionError(f"16c dry run: {res.get('traceback')}")
+    cfg = get_config("stablelm-1.6b")
+    tr = HeteroTrainer(cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev,
+                                      fixed_chunk=8, async_depth=2)],
+                       seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       oc=OptConfig(**TRAIN_OC), seed=0, repeat_data=True)
+    chunk = tr.data.batch(0, 8)
+    held = {"params": _tree_bytes(tr.params), "adamw": _tree_bytes(tr.opt),
+            "tokens_labels": int(chunk["tokens"].nbytes
+                                 + chunk["labels"].nbytes)}
+    mem = res["memory"]
+    log(f"16c dry run of 13d's chunk on a (1, 1) fake mesh: "
+        f"{json.dumps(mem)}, flops {res['flops_per_device']:.6e}, trace_s "
+        f"{res['trace_s']}; the trainer holds {json.dumps(held)} = "
+        f"{sum(held.values())} bytes (and a loss mask of "
+        f"{chunk['loss_mask'].nbytes} bytes the dry run's batch has not); "
+        f"predicted peak argument + temp = "
+        f"{mem['argument_bytes'] + mem['temp_bytes']} bytes beside 13d's "
+        f"measured max_memory_allocated {measured_peak} bytes "
+        f"(a prediction, not a gate)")
+    if mem["argument_bytes"] != sum(held.values()):
+        raise AssertionError(f"16c: the dry run's argument bytes "
+                             f"{mem['argument_bytes']} != the trainer's "
+                             f"{sum(held.values())}")
+    del tr
+    free_model()
+
+
+def phase_dry_run_child(measured_peak: int):
+    """Phase 16, in the child process; a failure's traceback goes to
+    standard output, which the parent echoes."""
+    import traceback
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    try:
+        phase_mesh(dev)
+        phase_dryrun_cells()
+        phase_dryrun_vs_trainer(dev, measured_peak)
+    except Exception:
+        log(traceback.format_exc())
+        raise SystemExit(1)
+    log(f"phase 16: {time.perf_counter() - t0:.2f} s")
+
+
+def phase_dry_run(measured_peak: int):
+    """Phase 16 in a child process: its output echoed, any failure
+    raised."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phase16",
+         str(measured_peak)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode:
+        raise AssertionError(f"phase 16 failed (exit {proc.returncode}); "
+                             f"its traceback is above")
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2352,7 +2573,7 @@ def main():
     phase_train_reference(dev, cfg, params, first_blocks(2),
                           {"flash_attention": 4, "flash_decode": 0,
                            "ssd_scan": 0})
-    counts["stablelm-1.6b training"], _ = phase_train_main(
+    counts["stablelm-1.6b training"], train_out = phase_train_main(
         dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
     phase_train_ordering(dev, cfg, params)
     del params
@@ -2393,6 +2614,7 @@ def main():
         seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
     del params
     free_model()
+    phase_dry_run(train_out["max_memory_allocated"])
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),
@@ -2429,4 +2651,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase16"]:
+        phase_dry_run_child(int(sys.argv[2]))
+    else:
+        main()

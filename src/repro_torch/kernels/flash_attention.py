@@ -14,7 +14,9 @@ CPU tensors it computes ``flash_attention_plain``. With ``return_lse`` both
 also return each query row's log-sum-exp L = max(s) + ln(sum e^(s - max))
 of the scaled scores s = q.k / sqrt(d), fp32 (b, h, sq): what the training
 backward (``models.attention.FlashAttentionFn``) reads. ``launches`` counts
-kernel launches.
+kernel launches. On the meta device under abstract evaluation (the dry
+run's ``kernels.cost.recording``) it launches nothing: it returns empty
+outputs of the kernel's shapes and dtypes and charges the kernel's work.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels._checks import (HEAD_DIMS, check_attention_sizes,
                                          check_cuda_bf16, check_no_grad,
                                          check_rows)
@@ -85,12 +87,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
+def _abstract(q, k, v, causal: bool, q_offset: int, return_lse: bool):
+    """The kernel's outputs on the meta device, its work charged."""
+    b, sq, h, d = q.shape
+    _, skv, g, _ = k.shape
+    cost.charge("flash_attention",
+                cost.attention_flops(b, sq, skv, h, d, causal, q_offset),
+                cost.attention_bytes(b, sq, skv, h, g, d, return_lse))
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if not return_lse:
+        return out
+    return out, torch.empty((b, h, sq), dtype=torch.float32,
+                            device=q.device)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     return_lse: bool = False):
     """q (b, sq, h, d); k, v (b, skv, kvh, d) -> o (b, sq, h, d), and with
     ``return_lse`` (o, L (b, h, sq) fp32)."""
     global launches
+    if q.device.type == "meta" and cost.evaluating():
+        check_no_grad("flash_attention", q=q, k=k, v=v)
+        return _abstract(q, k, v, causal, q_offset, return_lse)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, return_lse=return_lse)

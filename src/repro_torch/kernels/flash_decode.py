@@ -13,7 +13,10 @@ that kv head; the last block of each to finish merges the splits.
 16/32/64/96/128, h/kvh in 1/2/4/8) and raises on anything it does not
 take; for CPU tensors it computes ``flash_decode_plain``. ``launches``
 counts kernel launches (one per call). ``flash_decode_split_plain``
-computes the function the way the kernel cuts it, for the tests.
+computes the function the way the kernel cuts it, for the tests. On the
+meta device under abstract evaluation (the dry run's
+``kernels.cost.recording``) it launches nothing: it returns an empty
+output and charges the work of reading every cache row.
 Precondition: ``kv_len >= 1``.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels._checks import (HEAD_DIMS, check_cuda_bf16,
                                          check_no_grad, check_rows)
 
@@ -173,6 +176,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     (b, 1, h, d). ``n_split`` (CUDA only) overrides ``split_count``: the
     tests force the merge with it, chip_smoke.py times other counts."""
     global launches
+    if q.device.type == "meta" and cost.evaluating():
+        check_no_grad("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
+        # kv_len has no values here: every row of the cache is charged
+        b, _, h, d = q.shape
+        _, S, g, _ = k_cache.shape
+        cost.charge("flash_decode", cost.decode_flops(b * S, h, d),
+                    cost.decode_bytes(b, h, g, d, b * S))
+        return torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, kv_len)
     check_no_grad("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)

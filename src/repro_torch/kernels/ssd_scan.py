@@ -18,7 +18,10 @@ padding of the reference does.
 ``ssd_scan`` launches the kernel for CUDA tensors (x/B/C bf16, dt/A/
 ``init_state`` fp32, (P, N) in ``SHAPES``, chunk a multiple of 8 up to 128)
 and raises on anything it does not take; for CPU tensors it computes
-``ssd_scan_plain``. ``launches`` counts kernel launches.
+``ssd_scan_plain``. ``launches`` counts kernel launches. On the meta
+device under abstract evaluation (the dry run's ``kernels.cost.recording``)
+it launches nothing: it returns empty outputs of the kernel's shapes and
+dtypes and charges its work.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels._checks import (check_cuda_bf16, check_no_grad,
                                          check_rows)
 
@@ -171,6 +174,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     init_state (b, nh, P, N) or None -> (y (b, s, nh, P), final state
     (b, nh, P, N) fp32)."""
     global launches
+    if x.device.type == "meta" and cost.evaluating():
+        check_no_grad("ssd_scan", x=x, dt=dt, A=A, B=B, C=C,
+                      init_state=init_state)
+        b, s, nh, P = x.shape
+        g, N = B.shape[2], B.shape[3]
+        cost.charge("ssd_scan", cost.ssd_flops(b, s, nh, P, N, chunk),
+                    cost.ssd_bytes(b, s, nh, P, g, N, init_state is not None))
+        return (torch.empty((b, s, nh, P), dtype=x.dtype, device=x.device),
+                torch.empty((b, nh, P, N), dtype=torch.float32,
+                            device=x.device))
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
     check_no_grad("ssd_scan", x=x, dt=dt, A=A, B=B, C=C,

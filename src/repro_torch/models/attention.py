@@ -14,7 +14,9 @@ kernel's plain version); the backward, the same code on both, is
 ``_flash_bwd_rule`` blocked over (q chunk, kv chunk) in fp32.
 
 GQA layout convention: q is grouped as (b, s, g, m, hd) where g = n_kv_heads
-and m = n_heads // n_kv_heads; k/v are (b, s, g, hd).
+and m = n_heads // n_kv_heads; k/v are (b, s, g, hd). The model calls them
+through ``attend``, which groups q and ungroups the output; under a mesh
+(the dry run's ``DTensor``s) it runs them on each device's own shards.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import cost, ops
+from repro_torch.sharding.partition import active_mesh, run_local
 
 NEG_INF = -1e30
 
@@ -38,6 +41,79 @@ def group_query_heads(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
 def ungroup_heads(o: torch.Tensor) -> torch.Tensor:
     b, s, g, m, hd = o.shape
     return o.reshape(b, s, g * m, hd)
+
+
+def attend(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *rest: torch.Tensor) -> torch.Tensor:
+    """``fn(q grouped by kv head, k, v, *rest)`` ungrouped back to the
+    model layout: q (b, sq, h, hd), k/v (b, skv, g, hd) -> (b, sq, h, hd).
+    ``fn`` is ``chunked_attention``, ``FlashAttentionFn.apply`` or
+    ``decode_attention`` with its options bound. Under a mesh every device
+    runs ``fn`` on its own shards (``_attend_local``)."""
+    if active_mesh() is None:
+        return ungroup_heads(fn(group_query_heads(q, k.shape[2]), k, v,
+                                *rest))
+    return _attend_local(fn, q, k, v, *rest)
+
+
+def _attend_local(fn, q, k, v, *rest):
+    """``attend`` on DTensors, per device (``sharding.run_local``), each
+    device holding whole sequences of some (batch, query head) pairs.
+
+    Batch shards stay; query-head shards stay, and the kv heads stay
+    sharded with them where each device's kv heads are exactly its query
+    heads' groups (g divisible by the mesh dim). Otherwise the kv heads
+    are gathered and each device reads the ones its query heads use: a
+    head split over both GQA dims (yi-6b's 32 heads on 4 kv heads over 16
+    devices) has no DTensor placement in the grouped layout. Sequence
+    shards (the residual stream's, long_500k's cache) are gathered. The
+    gradient of gathered kv heads is partial: each device adds its own
+    heads' part."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = active_mesh()
+    h, g = q.shape[2], k.shape[2]
+    q_pl, kv_pl, kv_grad, head_dim = [], [], [], None
+    for i, (a, c) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if Shard(0) in (a, c):
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            kv_grad.append(Shard(0))
+        elif a == Shard(2):
+            head_dim = i
+            q_pl.append(a)
+            kv_pl.append(c if c == Shard(2) and g % n == 0 else Replicate())
+            kv_grad.append(kv_pl[-1] if kv_pl[-1] == Shard(2) else Partial())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    rest_pl = [tuple(Shard(0) if p == Shard(0) else Replicate()
+                     for p in q_pl) for _ in rest]
+    gathered = head_dim is not None and kv_pl[head_dim] != Shard(2)
+
+    def local(q_l, k_l, v_l, *rest_l):
+        if gathered:
+            # this device's query heads [off, off + h_l) read kv heads
+            # (off + j) // m; a contiguous run keeps the grouping
+            h_l, m = q_l.shape[2], h // g
+            off = min(h, mesh.get_local_rank(head_dim)
+                      * -(-h // mesh.size(head_dim)))
+            kv0, kv1 = off // m, (off + h_l - 1) // m + 1
+            if h_l % (kv1 - kv0) == 0 and all(
+                    (off + j) // m - kv0 == j // (h_l // (kv1 - kv0))
+                    for j in range(h_l)):
+                k_l, v_l = k_l[:, :, kv0:kv1], v_l[:, :, kv0:kv1]
+            else:
+                idx = (off + torch.arange(h_l, device=q_l.device)) // m
+                k_l, v_l = k_l[:, :, idx], v_l[:, :, idx]
+        o = fn(group_query_heads(q_l, k_l.shape[2]), k_l, v_l, *rest_l)
+        return ungroup_heads(o)
+
+    return run_local(local, (q, k, v, *rest),
+                     (tuple(q_pl), tuple(kv_pl), tuple(kv_pl), *rest_pl),
+                     (tuple(q_pl), tuple(kv_grad), tuple(kv_grad), *rest_pl),
+                     [tuple(q_pl)], lambda outs: [q.shape])
 
 
 def _block(q_blk, k_blk, v_blk, m_prev, l_prev, acc, row0: int, col0: int,
@@ -132,7 +208,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if block_skip and not causal:
         raise ValueError("block_skip requires causal attention")
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         if kv_len is not None:
             raise NotImplementedError(
                 "the CUDA flash-attention kernel takes no kv_len; the "
@@ -216,6 +292,14 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, L = ctx.saved_tensors
+        if q.is_meta and cost.evaluating():
+            # abstract evaluation (the dry run): the blocked loop's work
+            # charged, its gradients' shapes returned
+            b, sq, g, m, hd = q.shape
+            cost.charge("flash_attention_backward", cost.attention_bwd_flops(
+                b, sq, k.shape[1], g * m, hd), 0)
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None, None, None)
         dq, dk, dv = _flash_bwd(q, k, v, o, L, do, ctx.causal, ctx.q_chunk,
                                 ctx.kv_chunk)
         return dq, dk, dv, None, None, None
@@ -231,7 +315,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int32 on the caches' device. On CUDA this is the flash-decode kernel.
     """
     b, _, g, m, hd = q.shape
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         o = ops.decode_attention_bshd(ungroup_heads(q), k_cache, v_cache,
                                       kv_len, n_heads=g * m, n_kv_heads=g)
         return group_query_heads(o, g)

@@ -24,11 +24,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import (chunked_attention, decode_attention,
-                                          group_query_heads)
+from repro_torch.models.attention import attend, decode_attention
 from repro_torch.models.layers import ParamDef, norm, norm_defs
 from repro_torch.models.ssm import (mamba2_block_fwd, mamba2_decode_step,
                                     mamba2_defs, mamba2_dims)
+from repro_torch.sharding.partition import lshard, place, settle
 
 
 def hybrid_layout(cfg: LMConfig) -> Tuple[int, int, int]:
@@ -136,12 +136,11 @@ def cache_axes(cfg: LMConfig):
 def _shared_attn_prefill(cfg: LMConfig, bp: Dict, x: torch.Tensor,
                          positions: torch.Tensor):
     h = norm(x, bp["attn_norm"], cfg.norm_type, cfg.norm_eps)
+    h = lshard(h, "act_batch", "act_seq", "act_embed")
     q, k, v = tfm._qkv(cfg, bp["attn"], h, positions)
-    o = chunked_attention(group_query_heads(q, cfg.n_kv_heads), k, v,
-                          causal=True, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk,
-                          block_skip=cfg.causal_block_skip)
-    x = x + tfm._attn_out(bp["attn"], o)
+    o = tfm._prefill_attention(cfg, q, k, v)
+    x = x + lshard(tfm._attn_out(bp["attn"], o), "act_batch", "act_res_seq",
+                   "act_embed")
     return tfm.ffn_block_fwd(cfg, bp, x), k, v
 
 
@@ -154,7 +153,8 @@ def prefill(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
     x, positions = tfm.embed_tokens(cfg, params, tokens, prefix_emb)
     b, s = x.shape[0], x.shape[1]
     n_groups, k, tail = hybrid_layout(cfg)
-    cache = init_cache(cfg, b, max_len or s, x.device)
+    cache = place(lambda: init_cache(cfg, b, max_len or s, x.device),
+                  cache_axes(cfg))
     for gi in range(n_groups):
         gp = tfm.layer_params(params["groups"], gi)
         for li in range(k):
@@ -183,7 +183,8 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
     ``pos`` updated in place, and ``pos`` advanced."""
     b = tokens.shape[0]
     pos = cache["pos"]                                   # (b,) int32
-    x = F.embedding(tokens, params["embed"])             # (b, 1, d)
+    x = settle(F.embedding(tokens, params["embed"]))     # (b, 1, d)
+    x = lshard(x, "act_batch", "act_res_seq", "act_embed")
     positions = pos[:, None]
     kv_len = pos + 1
     n_groups, k, tail = hybrid_layout(cfg)
@@ -200,10 +201,13 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
         h = norm(x, bp["attn_norm"], cfg.norm_type, cfg.norm_eps)
         q, kk, vv = tfm._qkv(cfg, bp["attn"], h, positions)
         k_cache, v_cache = cache["ak"][gi], cache["av"][gi]
-        k_cache.scatter_(1, idx, kk)
-        v_cache.scatter_(1, idx, vv)
-        o = decode_attention(group_query_heads(q, g), k_cache, v_cache,
-                             kv_len)
+        tfm.write_rows(k_cache, idx, kk)
+        tfm.write_rows(v_cache, idx, vv)
+        k_cache = lshard(k_cache, "cache_batch", "cache_seq",
+                         "cache_kv_heads", None)
+        v_cache = lshard(v_cache, "cache_batch", "cache_seq",
+                         "cache_kv_heads", None)
+        o = attend(decode_attention, q, k_cache, v_cache, kv_len)
         x = x + tfm._attn_out(bp["attn"], o)
         x = tfm.ffn_block_fwd(cfg, bp, x)
     for ti in range(tail):

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import _TORCH_DTYPES
+from repro_torch.sharding.partition import lshard, matmul
 
 
 class ParamDef(NamedTuple):
@@ -162,9 +163,10 @@ def mlp_defs(d_model: int, d_ff: int, gated: bool, dtype: str):
 
 
 def mlp_fwd(p: Dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
-    h = x @ p["wi"]
+    h = matmul(x, p["wi"])
     if gated:
-        h = act_fn(act)(x @ p["wg"]) * h
+        h = act_fn(act)(matmul(x, p["wg"])) * h
     else:
         h = act_fn(act)(h)
-    return h @ p["wo"]
+    h = lshard(h, "act_batch", "act_seq", "act_mlp")
+    return matmul(h, p["wo"])

@@ -28,6 +28,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (ParamDef, abstract_from_defs,
                                        axes_from_defs, init_from_defs, norm,
                                        norm_defs)
+from repro_torch.sharding.partition import place, settle
 
 #: the attention families, served by ``transformer``; ``ssm`` (xLSTM) is
 #: assembled here, ``hybrid`` (zamba2) is served by ``hybrid``
@@ -134,7 +135,8 @@ def _xlstm_prefill(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
     x, _ = tfm.embed_tokens(cfg, params, tokens, prefix_emb)
     b, s = x.shape[0], x.shape[1]
     n_pairs, n_m = _xlstm_layout(cfg)
-    cache = _xlstm_init_cache(cfg, b, max_len or s, x.device)
+    cache = place(lambda: _xlstm_init_cache(cfg, b, max_len or s, x.device),
+                  _xlstm_cache_axes(cfg))
     for pi in range(n_pairs):
         mp = tfm.layer_params(params["m"], pi)
         for mi in range(n_m):
@@ -154,7 +156,7 @@ def _xlstm_decode(cfg: LMConfig, params: Dict, cache: Dict,
     """One decode step: each block's new state is copied into the cache
     in place and ``pos`` advanced in place (the JAX version returns a new
     cache)."""
-    x = F.embedding(tokens, params["embed"])             # (b, 1, d)
+    x = settle(F.embedding(tokens, params["embed"]))     # (b, 1, d)
     n_pairs, n_m = _xlstm_layout(cfg)
     for pi in range(n_pairs):
         mp = tfm.layer_params(params["m"], pi)

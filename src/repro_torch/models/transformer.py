@@ -22,11 +22,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.attention import (FlashAttentionFn, chunked_attention,
-                                          decode_attention, group_query_heads,
-                                          ungroup_heads)
+from repro_torch.models.attention import (FlashAttentionFn, attend,
+                                          chunked_attention, decode_attention)
 from repro_torch.models.layers import (ParamDef, apply_rope, mlp_defs,
                                        mlp_fwd, norm, norm_defs, rope_freqs)
+from repro_torch.sharding.partition import (active_mesh, lshard, matmul,
+                                           on_shards, place, run_local,
+                                           settle)
 
 
 # ---------------------------------------------------------------------------
@@ -101,12 +103,28 @@ def _rope(cfg: LMConfig, device: torch.device) -> Tuple[torch.Tensor, int]:
                       cfg.rope_theta, device)
 
 
-def _qkv(cfg: LMConfig, p: Dict, h: torch.Tensor, positions: torch.Tensor):
+def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h (b, s, d) @ w (d, n, hd) -> (b, s, n, hd)."""
     b, s, d = h.shape
-    hd = cfg.resolved_head_dim
-    q = (h @ p["wq"].reshape(d, -1)).view(b, s, cfg.n_heads, hd)
-    k = (h @ p["wk"].reshape(d, -1)).view(b, s, cfg.n_kv_heads, hd)
-    v = (h @ p["wv"].reshape(d, -1)).view(b, s, cfg.n_kv_heads, hd)
+    return (h @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+
+
+def _heads(h: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
+    """``_project``; under a mesh per device, column-parallel: the weight
+    gathered over ``embed``, its heads as the rules shard ``axis`` (DTensor
+    cannot flatten unevenly sharded heads)."""
+    return on_shards(_project, (h, w),
+                     (("act_batch", "act_seq", None), (None, axis, None)),
+                     [("act_batch", "act_seq", axis, None)])
+
+
+def _qkv(cfg: LMConfig, p: Dict, h: torch.Tensor, positions: torch.Tensor):
+    q = _heads(h, p["wq"], "heads")
+    k = _heads(h, p["wk"], "kv_heads")
+    v = _heads(h, p["wv"], "kv_heads")
+    q = lshard(q, "act_batch", "act_seq", "act_heads", None)
+    k = lshard(k, "act_batch", "act_seq", "act_kv_heads", None)
+    v = lshard(v, "act_batch", "act_seq", "act_kv_heads", None)
     if cfg.pos_emb == "rope":
         inv, rot = _rope(cfg, h.device)
         q = apply_rope(q, positions, inv, rot)
@@ -114,19 +132,42 @@ def _qkv(cfg: LMConfig, p: Dict, h: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def _attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
-    wo = p["wo"]
-    return ungroup_heads(o).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def ffn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """The FFN sublayer with its residual. Serving only: the MoE aux loss
-    is dropped, as the reference's prefill and decode_step drop it."""
+def _attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
+    """o (b, s, h, hd) through the output projection; under a mesh per
+    device, row-parallel: a partial sum over the devices of its heads."""
+    return on_shards(_out_proj, (o, p["wo"]),
+                     (("act_batch", "act_seq", "heads", None),
+                      ("heads", None, None)),
+                     [("act_batch", "act_seq", None)], partial=("heads",))
+
+
+def _prefill_attention(cfg: LMConfig, q, k, v) -> torch.Tensor:
+    return attend(lambda qg, k, v: chunked_attention(
+        qg, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+        block_skip=cfg.causal_block_skip), q, k, v)
+
+
+def ffn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
+                  with_aux: bool = False):
+    """The FFN sublayer with its residual; with ``with_aux`` also the MoE
+    router's Switch loss (0 without MoE), else it is dropped, as the
+    reference's prefill and decode_step drop it."""
     h = norm(x, p["mlp_norm"], cfg.norm_type, cfg.norm_eps)
+    h = lshard(h, "act_batch", "act_seq", "act_embed")   # bf16 SP boundary
     if cfg.moe:
-        return x + moe_lib.moe_fwd(cfg, p["moe"], h)[0]
-    return x + mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp)
+        y, aux = moe_lib.moe_fwd(cfg, p["moe"], h)
+    else:
+        y, aux = mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp), None
+    if not with_aux:
+        return x + y
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def attn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
@@ -135,10 +176,14 @@ def attn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
     not ``cfg.attn_custom_vjp`` is set (the JAX package's two routes give
     the same gradient), through ``FlashAttentionFn``."""
     h = norm(x, p["attn_norm"], cfg.norm_type, cfg.norm_eps)
+    # SP boundary: re-gather the sequence on the bf16 normed tensor, before
+    # the projections
+    h = lshard(h, "act_batch", "act_seq", "act_embed")
     q, k, v = _qkv(cfg, p["attn"], h, positions)
-    o = FlashAttentionFn.apply(group_query_heads(q, cfg.n_kv_heads), k, v,
-                               True, cfg.q_chunk, cfg.kv_chunk)
-    return x + _attn_out(p["attn"], o)
+    o = attend(lambda qg, k, v: FlashAttentionFn.apply(
+        qg, k, v, True, cfg.q_chunk, cfg.kv_chunk), q, k, v)
+    return x + lshard(_attn_out(p["attn"], o), "act_batch", "act_res_seq",
+                      "act_embed")
 
 
 def block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
@@ -146,12 +191,7 @@ def block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
     """One training block: (x, the block's aux loss: the MoE router's
     Switch loss, 0 without MoE)."""
     x = attn_block_fwd(cfg, p, x, positions)
-    h = norm(x, p["mlp_norm"], cfg.norm_type, cfg.norm_eps)
-    if cfg.moe:
-        y, aux = moe_lib.moe_fwd(cfg, p["moe"], h)
-        return x + y, aux
-    return x + mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp), \
-        torch.zeros((), dtype=torch.float32, device=x.device)
+    return ffn_block_fwd(cfg, p, x, with_aux=True)
 
 
 def unbind_layers(blocks: Dict, n: int) -> List[Dict]:
@@ -171,19 +211,20 @@ def unbind_layers(blocks: Dict, n: int) -> List[Dict]:
 
 def embed_tokens(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
                  prefix_emb: Optional[torch.Tensor], pos0: int = 0):
-    x = F.embedding(tokens, params["embed"])
+    x = settle(F.embedding(tokens, params["embed"]))
     if prefix_emb is not None:
         x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
     s = x.shape[1]
     positions = pos0 + torch.arange(s, device=x.device)[None, :]
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"][pos0:pos0 + s][None]
+    x = lshard(x, "act_batch", "act_res_seq", "act_embed")
     return x, positions
 
 
 def logits_fwd(cfg: LMConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ w
+    return lshard(matmul(x, w), "act_batch", "act_seq", "act_vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -239,23 +280,52 @@ def prefill(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
     prompt, and later decode steps update it in place."""
     x, positions = embed_tokens(cfg, params, tokens, prefix_emb)
     b, s = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, b, max_len or s, x.device)
+    cache = place(lambda: init_cache(cfg, b, max_len or s, x.device),
+                  cache_axes(cfg))
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
         h = norm(x, bp["attn_norm"], cfg.norm_type, cfg.norm_eps)
+        h = lshard(h, "act_batch", "act_seq", "act_embed")
         q, k, v = _qkv(cfg, bp["attn"], h, positions)
-        o = chunked_attention(group_query_heads(q, cfg.n_kv_heads), k, v,
-                              causal=True, q_chunk=cfg.q_chunk,
-                              kv_chunk=cfg.kv_chunk,
-                              block_skip=cfg.causal_block_skip)
-        x = x + _attn_out(bp["attn"], o)
+        o = _prefill_attention(cfg, q, k, v)
+        x = x + lshard(_attn_out(bp["attn"], o), "act_batch", "act_res_seq",
+                       "act_embed")
         x = ffn_block_fwd(cfg, bp, x)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        cache["k"][i, :, :s] = lshard(k, "cache_batch", "cache_seq",
+                                      "cache_kv_heads", None)
+        cache["v"][i, :, :s] = lshard(v, "cache_batch", "cache_seq",
+                                      "cache_kv_heads", None)
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
     logits = logits_fwd(cfg, params, x[:, -1:, :])
     cache["pos"].fill_(s)
     return logits, cache
+
+
+def write_rows(cache: torch.Tensor, idx: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """cache[r, pos[r]] = new[r] in place; idx is pos (b,) expanded to
+    new's (b, 1, g, hd). Under a mesh per device on its own block of the
+    cache (DTensor cannot scatter into a sequence-sharded cache in place),
+    a row outside the block left alone."""
+    if active_mesh() is None:
+        cache.scatter_(1, idx, new)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.rules import local_box
+    mesh = active_mesh()
+    pl = tuple(cache.placements)
+    rows = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in pl)
+    seq0 = local_box(cache.shape, mesh, pl)[0][1]
+
+    def local(cache, idx, new):
+        at = idx - seq0
+        inside = (at >= 0) & (at < cache.shape[1])
+        at = at.clamp(0, max(cache.shape[1] - 1, 0))
+        cache.scatter_(1, at, torch.where(inside, new, cache.gather(1, at)))
+        return cache
+
+    run_local(local, (cache, idx, new), (pl, rows, rows), (pl, rows, rows),
+              [pl], lambda outs: [cache.shape])
 
 
 def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
@@ -268,9 +338,10 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
     dict."""
     b = tokens.shape[0]
     pos = cache["pos"]                                   # (b,) int32
-    x = F.embedding(tokens, params["embed"])             # (b, 1, d)
+    x = settle(F.embedding(tokens, params["embed"]))     # (b, 1, d)
     if cfg.pos_emb == "learned":
-        x = x + params["pos_emb"][pos.long()][:, None, :]
+        x = x + F.embedding(pos.long(), params["pos_emb"])[:, None, :]
+    x = lshard(x, "act_batch", "act_res_seq", "act_embed")
     positions = pos[:, None]
     kv_len = pos + 1
     g, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -281,11 +352,15 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
         h = norm(x, bp["attn_norm"], cfg.norm_type, cfg.norm_eps)
         q, k, v = _qkv(cfg, bp["attn"], h, positions)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache.scatter_(1, idx, k)
-        v_cache.scatter_(1, idx, v)
-        o = decode_attention(group_query_heads(q, g), k_cache, v_cache,
-                             kv_len)
-        x = x + _attn_out(bp["attn"], o)
+        write_rows(k_cache, idx, k)
+        write_rows(v_cache, idx, v)
+        k_cache = lshard(k_cache, "cache_batch", "cache_seq",
+                         "cache_kv_heads", None)
+        v_cache = lshard(v_cache, "cache_batch", "cache_seq",
+                         "cache_kv_heads", None)
+        o = attend(decode_attention, q, k_cache, v_cache, kv_len)
+        x = x + lshard(_attn_out(bp["attn"], o), "act_batch", "act_res_seq",
+                       "act_embed")
         x = ffn_block_fwd(cfg, bp, x)
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
     cache["pos"] = kv_len

@@ -3,7 +3,10 @@
 The label's logit is picked with ``gather`` where the JAX package contracts
 with a one-hot (which it does to keep a sharded vocab dim sharded): the
 other terms of that contraction are exact zeros, so the two agree, and the
-(b, s, vocab) one-hot is never built.
+(b, s, vocab) one-hot is never built. Under a mesh (the dry run), where
+the vocab dim is sharded, the label's logit is that contraction, as in the
+JAX package: DTensor's gather along a sharded dim cannot be reduced
+(ROADMAP C11).
 """
 from __future__ import annotations
 
@@ -13,6 +16,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.partition import active_mesh, matmul, on_shards
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels]: a gather, or under a mesh a one-hot
+    contraction."""
+    if active_mesh() is None:
+        return logits.gather(-1, labels.long()[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return (logits * (labels.long()[..., None] == vocab)).sum(-1)
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) \
@@ -20,8 +34,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token-mean cross entropy in fp32. logits: (b, s, v); labels: (b, s)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    nll = lse - _label_logit(lf, labels)
     mask = torch.ones_like(nll) if mask is None else mask.float()
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
@@ -32,11 +45,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def _chunk_sums(xb: torch.Tensor, w: torch.Tensor, lb: torch.Tensor,
                 mb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(masked nll sum, masked correct count) of one sequence chunk."""
-    logits = (xb @ w).float()
+    logits = matmul(xb, w).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, lb.long()[..., None])[..., 0]
+    ll = _label_logit(logits, lb)
     correct = (logits.argmax(-1) == lb).float()
     return ((lse - ll) * mb).sum(), (correct * mb).sum()
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """t (b, s, ...) zero-padded to s + pad; under a mesh per device on its
+    batch rows (torch 2.11's DTensor fails to pad a sharded tensor)."""
+    axes = ("act_batch",) + (None,) * (t.dim() - 1)
+    return on_shards(
+        lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)), (t,), (axes,),
+        [axes])
 
 
 def chunked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
@@ -57,9 +79,7 @@ def chunked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
     c = min(chunk, s)
     pad = (-s) % c
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
+        x, labels, mask = (_pad_seq(t, pad) for t in (x, labels, mask))
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     nll_sum, acc_sum, cnt = zero, zero, zero
     for c0 in range(0, s + pad, c):

@@ -102,6 +102,12 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
+def _host(t: torch.Tensor):
+    """A 0-d tensor's value as a Python float; on the meta device (the
+    dry run), which holds no values, the tensor itself."""
+    return t if t.is_meta else float(t)
+
+
 @torch.no_grad()
 def adamw_update(oc: OptConfig, params, grads, opt: Dict) \
         -> Tuple[Dict, Dict, Dict]:
@@ -113,9 +119,9 @@ def adamw_update(oc: OptConfig, params, grads, opt: Dict) \
     lr = lr_at(oc, step)
     b1, b2 = oc.beta1, oc.beta2
     stepf = step.to(torch.float32)
-    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** stepf)
-    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
-    lr_f = float(lr)
+    bc1 = _host(1 - torch.tensor(b1, dtype=torch.float32) ** stepf)
+    bc2 = _host(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
+    lr_f = _host(lr)
     for g, m, v, master, p in zip(tree_leaves(grads), tree_leaves(opt["m"]),
                                   tree_leaves(opt["v"]),
                                   tree_leaves(opt["master"]),

@@ -71,3 +71,11 @@ def test_the_paper_core_and_the_examples_are_scanned():
     for name in ("quickstart", "overhead_analysis", "serve_hetero",
                  "train_hetero_lm", "observe"):
         assert f"examples/torch/{name}.py" in rel, name
+
+
+def test_the_sharding_and_dry_run_modules_are_scanned():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("sharding/__init__.py", "sharding/rules.py",
+                "sharding/partition.py", "launch/mesh.py",
+                "launch/dryrun.py", "kernels/cost.py"):
+        assert f"src/repro_torch/{mod}" in rel, mod

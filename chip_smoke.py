@@ -34,7 +34,12 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    group ``accel:chunk=8:async=2`` on cuda:0, 64 requests of 512 prompt
    tokens and 16 decode tokens; the kernels' launch counts are zeroed just
    before and read just after, and must equal 24 per prefill and 24 per
-   decode step;
+   decode step. Every serving phase runs the engine's CUDA graphs
+   (``_fns_for``: a prefill graph and a decode-step graph captured per
+   executor and batch bucket, replayed after that; a replay counts the
+   launches its capture recorded): each (executor, bucket) pair is
+   captured once, a chunk replays its prefill and 15 decode steps, and
+   no capture or replay fails (the engine's ``graph_counts``);
 5. the heterogeneous path: groups ``accel:chunk=8:async=2`` on cuda:0 and
    ``cpu0`` on the CPU, on reduced stablelm-1.6b;
 6. the hybrid model at full width on a small input: zamba2-1.2b cut to 7
@@ -145,18 +150,22 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       with ``accel:chunk=8:async=2`` (bulk, dynamic, bulk, dynamic), with
       wall time, tok/s, peak memory, the accel group's O_sp, O_hd, O_kl,
       O_td, O_dh, and energy and EDP modelled at the card's power limit,
-      and the share of requests whose tokens equal across the two; then
+      and the share of requests whose tokens equal across the two (the
+      graphs of buckets 64 and 8 captured before the timed runs); then
       phase 3's check at b = 64 (the first 2 layers, 64 prompts of 512,
       kernels against plain versions, max |dlogit| <= 5e-2 max |logit|),
-      and the bulk chunk of 64 once more with the plain versions, whose
-      tokens are held beside the kernels' and the dynamic run's;
+      and the bulk chunk of 64 once more, the engine's step run eagerly
+      with the plain versions (which read values on the host, so are
+      never captured), whose tokens are held beside the kernels' and the
+      dynamic run's;
    b. the paper's comparison on phase 5's configuration (reduced
       stablelm-1.6b, accel on cuda:0 + cpu0 on the CPU, 64 x 128 + 16):
       ``BulkScheduler.oracle(0, 64)``, all eleven splits, each covering
       the 64 requests once with the accelerator given int(64 frac), the
       last 64 / 0, launches exact over the sweep, between two dynamic
-      ``serve(64)`` runs; time, items and modelled EDP (cpu0 at 65 / 10
-      W) a split, and dynamic normalised to the best split;
+      ``serve(64)`` runs, the accel executor's graphs of every bucket
+      captured first; time, items and modelled EDP (cpu0 at 65 / 10 W) a
+      split, and dynamic normalised to the best split;
    c. ``examples/torch`` serve_hetero, observe and train_hetero_lm (20
       steps) on cuda:0 with their CPU groups on the CPU, their own
       assertions holding;
@@ -164,6 +173,18 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       of its abstract parameters, AdamW state and each dry-run shape's
       inputs and caches (meta tensors), and stablelm-1.6b's abstract
       parameters against phase 4's materialised ones;
+17. (run before phase 16) the engine's graphs against the eager step, for
+   each family served at full width (stablelm-1.6b, zamba2-1.2b,
+   phi-3-vision-4.2b, yi-6b, granite-moe-1b-a400m, xlstm-350m; random
+   weights from a torch.Generator seeded with 0): ``serve(16)`` cold (one
+   capture) and warm with ``accel:chunk=8:async=2``, launches and graph
+   counts exact; then per chunk of 8, on the executor's own inputs, the
+   step twice eagerly and once through the bucket's graphs: the engine's
+   tokens equal the eager ones for every request and the last step's
+   logits are bit-equal (where two eager runs differ, no farther apart
+   than they are); per family the captures, replays, capture seconds,
+   tok/s cold and warm, peak memory, and ``one_chunk_times`` eager and
+   graphed;
 16. (run last, in a child process, so that no process group meets the
    phases before it) the sharding rules, the meshes and the dry run:
    a. the power limit against ``launch.mesh.CHIP_ACTIVE_W`` and the idle
@@ -197,6 +218,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -658,6 +680,51 @@ def _zero_launches():
     FA.launches = FD.launches = SSD.launches = 0
 
 
+def _expect_graphs(eng, before, chunks, decode_tokens, what):
+    """The engine's CUDA graphs since ``before`` (a ``graph_counts``
+    snapshot): no capture or replay failed, each (executor, bucket) pair
+    captured once and every replayed pair captured, and a prefill and
+    ``decode_tokens - 1`` decode steps replayed for each of the
+    ``chunks`` chunks. Unless ``chunks`` is None (a drill may drop chunks
+    in flight, so its replays are reported, not held to them), this
+    run's captures are exactly the pairs it replayed that had not been
+    captured before: the partitioner may carve a chunk of another bucket
+    (a refill of ``int(remaining * lam / total_lam)`` items truncates
+    to one fewer for some lam, leaving a last chunk of 1), and that
+    bucket is captured then, once. Returns the run's captures, replays,
+    replayed pairs and capture seconds."""
+    now = eng.graph_counts.snapshot()
+    pairs = [(e["executor"], e["bucket"]) for e in now["capture_log"]]
+    new = now["capture_log"][before["captures"]:]
+    replayed = sorted(p for p, n in now["replays_by_pair"].items()
+                      if n > before["replays_by_pair"].get(p, 0))
+    out = {"captures": len(new), "replays": now["replays"]
+           - before["replays"], "pairs": sorted(set(pairs)),
+           "replayed": replayed,
+           "capture_s": [{k: e[k] for k in ("executor", "bucket",
+                                            "warmup_s", "prefill_capture_s",
+                                            "decode_capture_s")}
+                         for e in new]}
+    if now["failures"]:
+        raise AssertionError(f"{what}: {now['failures']} graph captures or "
+                             f"replays failed")
+    if len(pairs) != len(set(pairs)) \
+            or not set(now["replays_by_pair"]) <= set(pairs):
+        raise AssertionError(f"{what}: captured {pairs}, replayed "
+                             f"{now['replays_by_pair']}")
+    if chunks is None:
+        return out
+    fresh = sorted(set(replayed) - set(pairs[:before["captures"]]))
+    if sorted((e["executor"], e["bucket"]) for e in new) != fresh:
+        raise AssertionError(f"{what}: captured {pairs[before['captures']:]}"
+                             f" in this run, which first replayed {fresh}")
+    if out["replays"] != chunks * decode_tokens:
+        raise AssertionError(f"{what}: {out['replays']} graph replays for "
+                             f"{chunks} chunks, expected "
+                             f"{chunks * decode_tokens}")
+    return out
+
+
 def phase_reference(dev, cfg, params):
     """The model at full width on a small input, cut to 2 layers (the
     first 2 of the main path's weights): prefill + 4 greedy decode steps
@@ -703,10 +770,14 @@ def _serve(cfg, groups, requests, prompt_len, decode_tokens, params=None):
                             params=params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = eng.graph_counts.snapshot()
     _zero_launches()
     rep = eng.serve(requests)
     counts = _launches()
     torch.cuda.synchronize()
+    eng.graphs_out = _expect_graphs(
+        eng, before, rep.overheads["accel"]["n_chunks"], decode_tokens,
+        f"{cfg.arch_id} serve({requests})")
     if rep.requests != requests or sum(rep.per_group_items.values()) \
             != requests or sorted(rep.tokens_out) != list(range(requests)):
         raise AssertionError(f"not every request was served: {rep}")
@@ -759,7 +830,8 @@ def phase_main(dev, cfg, params, per_prefill, per_decode_step):
     want = {k: chunks * (per_prefill.get(k, 0) + (decode_tokens - 1)
                          * per_decode_step.get(k, 0)) for k in counts}
     out = _report(rep, "accel")
-    out.update(max_len=eng.max_len, chunks=chunks, launches=counts)
+    out.update(max_len=eng.max_len, chunks=chunks, launches=counts,
+               graphs=eng.graphs_out)
     log(f"main path report ({cfg.arch_id}): " + json.dumps(out))
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
@@ -775,9 +847,9 @@ def phase_hetero(dev, main_out):
     groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
                        async_depth=2),
               GroupDef("cpu0", DeviceKind.BIG, device=torch.device("cpu"))]
-    _, rep, counts = _serve(cfg, groups, 64, 128, 16)
+    eng, rep, counts = _serve(cfg, groups, 64, 128, 16)
     out = _report(rep, "accel")
-    out["launches"] = counts
+    out.update(launches=counts, graphs=eng.graphs_out)
     log("heterogeneous report (reduced stablelm-1.6b): " + json.dumps(out))
     log("accel overheads, main path vs heterogeneous: "
         + json.dumps({"main": main_out["accel_overheads"],
@@ -1128,29 +1200,36 @@ def phase_reference_xlstm(dev, cfg, params):
         raise AssertionError(f"xLSTM fp32 on the card off the CPU's: {err32}")
 
 
-def one_chunk_times(dev, cfg, params, max_len):
-    """The model's split of one main-path chunk (8 prompts of 512 tokens):
-    the wall time of its prefill and of its 15 decode steps, each ended
-    by a synchronise; the second of two runs is kept."""
-    from repro_torch.models import model as M
+def one_chunk_times(dev, cfg, params, max_len, fns=None):
+    """The model's split of one main-path chunk (8 prompts of 512 tokens,
+    after the modality prefix rows if any): the wall time of its prefill
+    and of its 15 decode steps, each ended by a synchronise, and the host
+    time to issue the 15 steps; the second of two runs is kept. Eager, or
+    given ``fns`` (an executor's ``_fns_for(8)``) through its graphs."""
+    prefill, decode = fns or _eager_fns(cfg, max_len)
     gen = torch.Generator().manual_seed(5)
     tokens = torch.randint(0, cfg.vocab, (8, 512), generator=gen,
                            dtype=torch.int32).to(dev)
+    prefix = (torch.randn(8, cfg.prefix_len, cfg.d_model, generator=gen)
+              * 0.02).to(dev) if cfg.prefix_len else None
     with torch.no_grad():
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = M.prefill(cfg, params, tokens, max_len=max_len)
+            logits, cache = prefill(params, tokens, prefix)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             for _ in range(15):
                 tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-                logits, cache = M.decode_step(cfg, params, cache, tok)
+                logits, cache = decode(params, cache, tok)
+            t_issue = time.perf_counter()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+    out = {"prefill_s": t1 - t0, "decode_step_s": (t2 - t1) / 15,
+           "decode_step_issue_s": (t_issue - t1) / 15}
     log(f"one chunk ({cfg.arch_id}, 8 x 512 prompt tokens, 15 decode "
-        f"steps): " + json.dumps({"prefill_s": t1 - t0,
-                                   "decode_step_s": (t2 - t1) / 15}))
+        f"steps, {'graphed' if fns else 'eager'}): " + json.dumps(out))
+    return out
 
 
 def _map(fn, tree):
@@ -1286,6 +1365,7 @@ def phase_queued(dev, cfg, params, smi):
     jobs = _jobs(registry, "mix")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = eng.graph_counts.snapshot()
     _zero_launches()
     rep = eng.serve_jobs(jobs, slo_delay_s=SLO_ADMIT_ALL_S, batch_jobs=8,
                          pipeline_depth=2, tenants=registry,
@@ -1293,6 +1373,8 @@ def phase_queued(dev, cfg, params, smi):
     counts = _launches()
     torch.cuda.synchronize()
     chunks = _chunks_counted(tel)
+    graphs = _expect_graphs(eng, before, chunks, JOB_DECODE,
+                            "queued path")
     items = sum(u["items"] for u in rep.per_tenant.values())
     out = {
         "jobs": rep.jobs, "done": rep.done, "failed": rep.failed,
@@ -1307,10 +1389,12 @@ def phase_queued(dev, cfg, params, smi):
                                              "edp")}
                        for t, u in rep.per_tenant.items()},
         "energy": f"{MODELLED} ({watts} W)",
-        "launches": counts,
+        "launches": counts, "graphs": graphs,
+        "dead_groups": rep.dead_groups,
         "max_memory_allocated": torch.cuda.max_memory_allocated()}
     log("queued path report (stablelm-1.6b, serve_jobs): " + json.dumps(out))
-    if not rep.drained or rep.done != JOBS or rep.failed or rep.cancelled:
+    if not rep.drained or rep.done != JOBS or rep.failed or rep.cancelled \
+            or rep.dead_groups:
         raise AssertionError(f"queued run incomplete: {out}")
     if items != JOBS or len(eng.fetched) != chunks:
         raise AssertionError(f"per-tenant items {items}, fetched chunks "
@@ -1319,20 +1403,28 @@ def phase_queued(dev, cfg, params, smi):
     return counts
 
 
-def _greedy(cfg, params, prompts, max_len):
-    """The engine's step, serially on the default stream: prefill then
-    ``JOB_DECODE - 1`` greedy decode steps."""
+def _eager_fns(cfg, max_len):
+    """The engine's step functions called eagerly: (prefill, decode)
+    with the signatures of ``_fns_for``'s."""
     from repro_torch.models import model as M
+    return (lambda p, t, x: M.prefill(cfg, p, t, x, max_len=max_len),
+            lambda p, c, t: M.decode_step(cfg, p, c, t))
+
+
+def _step_chunk(prefill, decode, params, batch):
+    """The engine's step through ``prefill`` / ``decode``: (tokens (b,
+    JOB_DECODE) on the host, the last decode step's logits in fp32, a
+    copy)."""
     with torch.no_grad():
-        logits, cache = M.prefill(cfg, params, torch.as_tensor(
-            prompts, device=params["embed"].device), max_len=max_len)
-        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        toks = [tok]
-        for _ in range(JOB_DECODE - 1):
-            logits, cache = M.decode_step(cfg, params, cache, tok)
-            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-            toks.append(tok)
-        return torch.cat(toks, dim=1).cpu().numpy()
+        logits, cache = prefill(params, batch["tokens"],
+                                batch.get("prefix_emb"))
+        toks = []
+        for step in range(JOB_DECODE):
+            toks.append(logits[:, -1].argmax(-1, keepdim=True)
+                        .to(torch.int32))
+            if step + 1 < JOB_DECODE:
+                logits, cache = decode(params, cache, toks[-1])
+        return torch.cat(toks, 1).cpu().numpy(), logits.float().clone()
 
 
 def _fed_out(frep):
@@ -1379,14 +1471,18 @@ def phase_federated(dev, cfg, params):
     # run 1: no faults
     jobs = _jobs(registry, "standard")
     torch.cuda.reset_peak_memory_stats()
+    before = eng.graph_counts.snapshot()
     _zero_launches()
     frep = eng.serve_jobs_federated(jobs, **kw)
     counts = _launches()
     torch.cuda.synchronize()
     chunks = _chunks_counted(tel)
+    graphs = _expect_graphs(eng, before, chunks, JOB_DECODE,
+                            "federated run")
     out = _fed_out(frep)
     peak_added = out["max_memory_allocated"] - base
-    out.update(chunks=chunks, launches=counts, peak_added=peak_added)
+    out.update(chunks=chunks, launches=counts, peak_added=peak_added,
+               graphs=graphs)
     log("federated report, no faults (yi-6b, 3 runtimes): "
         + json.dumps(out))
     if not frep.drained or out["jobs"] != JOBS or out["done"] != JOBS \
@@ -1403,7 +1499,9 @@ def phase_federated(dev, cfg, params):
     for prompts, toks in eng.fetched:
         key = prompts.tobytes()
         if key not in serial:
-            serial[key] = _greedy(cfg, params, prompts, eng.max_len)
+            serial[key] = _step_chunk(
+                *_eager_fns(cfg, eng.max_len), params,
+                {"tokens": torch.as_tensor(prompts, device=dev)})[0]
         equal += int((serial[key] == toks).sum())
         total += toks.size
     agree = equal / total
@@ -1416,10 +1514,12 @@ def phase_federated(dev, cfg, params):
     # run 2: the kill drill
     jobs = _jobs(registry, "standard")
     torch.cuda.reset_peak_memory_stats()
+    before = eng.graph_counts.snapshot()
     frep = eng.serve_jobs_federated(jobs, kill_runtime=1,
                                     kill_after_frac=0.5, **kw)
     torch.cuda.synchronize()
     out = _fed_out(frep)
+    out["graphs"] = _expect_graphs(eng, before, None, None, "kill drill")
     log("federated report, r1 killed at half the jobs: " + json.dumps(out))
     # the federation's own count, by job id: the survivor re-materializes
     # the victim's jobs, so the submitted objects of those stay RUNNING
@@ -1435,14 +1535,145 @@ def phase_federated(dev, cfg, params):
                               ["r0/accel", "r1/accel", "r2/accel"])
     log(f"chaos plan (seed 0, 2 s): {plan.to_json()}")
     torch.cuda.reset_peak_memory_stats()
+    before = eng.graph_counts.snapshot()
     frep = eng.serve_jobs_federated(jobs, chaos_seed=0, chaos_horizon_s=2.0,
                                     **kw)
     torch.cuda.synchronize()
     out = _fed_out(frep)
+    out["graphs"] = _expect_graphs(eng, before, None, None, "chaos run")
     log("federated report, chaos seed 0: " + json.dumps(out))
     if not frep.drained or out["jobs"] != JOBS \
             or out["done"] + out["failed"] + out["cancelled"] != JOBS:
         raise AssertionError(f"chaos run: {out}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the engine's graphs against the eager step, every family
+# ---------------------------------------------------------------------------
+
+#: the six families served at full width
+GRAPH_ARCHS = ("stablelm-1.6b", "zamba2-1.2b", "phi-3-vision-4.2b", "yi-6b",
+               "granite-moe-1b-a400m", "xlstm-350m")
+#: two chunks of 8 per run
+GRAPH_REQUESTS = 16
+
+
+def _per_chunk(cfg):
+    """Kernel launches of one chunk's prefill and of one decode step."""
+    if cfg.family == "ssm":
+        return {}, {}
+    if cfg.family == "hybrid":
+        apps = cfg.n_layers // cfg.hybrid.attn_every
+        return ({"ssd_scan": cfg.n_layers, "flash_attention": apps},
+                {"flash_decode": apps})
+    return {"flash_attention": cfg.n_layers}, {"flash_decode": cfg.n_layers}
+
+
+def phase_graphs_family(dev, cfg, params):
+    """Phase 17 on one family: ``serve(16)`` twice (cold: the bucket's
+    capture; warm) with ``accel:chunk=8:async=2`` on cuda:0, 512 prompt +
+    16 decode tokens; launches and graph counts exact. Then, chunk by
+    chunk on the executor's own inputs, the step twice eagerly (on the
+    default stream) and once through the bucket's graphs: the engine's
+    tokens of both runs equal the eager ones for every request, and the
+    last step's logits are bit-equal (where the two eager runs differ,
+    no farther from the first than the second is). With both forms of
+    ``one_chunk_times``."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.types import Chunk, DeviceKind
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    eng = HeteroServeEngine(
+        cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2)],
+        prompt_len=JOB_PROMPT, decode_tokens=JOB_DECODE, seed=0,
+        params=params)
+    per_prefill, per_decode = _per_chunk(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for run in ("cold", "warm"):
+        before = eng.graph_counts.snapshot()
+        _zero_launches()
+        rep = eng.serve(GRAPH_REQUESTS)
+        counts = _launches()
+        torch.cuda.synchronize()
+        chunks = rep.overheads["accel"]["n_chunks"]
+        want = {k: chunks * (per_prefill.get(k, 0) + (JOB_DECODE - 1)
+                             * per_decode.get(k, 0)) for k in counts}
+        if counts != want or sorted(rep.tokens_out) \
+                != list(range(GRAPH_REQUESTS)):
+            raise AssertionError(f"{cfg.arch_id} {run}: launches {counts}, "
+                                 f"expected {want}; requests "
+                                 f"{sorted(rep.tokens_out)}")
+        runs[run] = {"rep": rep, "launches": counts, "graphs": _expect_graphs(
+            eng, before, chunks, JOB_DECODE, f"{cfg.arch_id} {run}")}
+    peak = torch.cuda.max_memory_allocated()
+    ex = eng._executor_for(eng.groups[0])
+    fns = eng._fns_for(8, ex)
+    eager = _eager_fns(cfg, eng.max_len)
+    eager_equal, graph_equal, eager_dist, graph_dist = True, True, 0.0, 0.0
+    token_mismatch = []
+    for begin in range(0, GRAPH_REQUESTS, 8):
+        host = ex.make_inputs(SimpleNamespace(chunk=Chunk(begin, begin + 8)))
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+        e1, l1 = _step_chunk(*eager, params, batch)
+        e2, l2 = _step_chunk(*eager, params, batch)
+        g, lg = _step_chunk(*fns, params, batch)
+        eager_equal &= torch.equal(l1, l2)
+        graph_equal &= torch.equal(lg, l1)
+        eager_dist = max(eager_dist, (l1 - l2).abs().max().item())
+        graph_dist = max(graph_dist, (lg - l1).abs().max().item())
+        for i in range(8):
+            for name, got in (("cold", runs["cold"]["rep"].tokens_out),
+                              ("warm", runs["warm"]["rep"].tokens_out),
+                              ("graphs", dict(enumerate(g, begin)))):
+                if not (np.array_equal(got[begin + i], e1[i])
+                        or (not eager_equal
+                            and np.array_equal(got[begin + i], e2[i]))):
+                    token_mismatch.append((name, begin + i))
+    times = {"eager": one_chunk_times(dev, cfg, params, eng.max_len),
+             "graphed": one_chunk_times(dev, cfg, params, eng.max_len, fns)}
+    counts = eng.graph_counts.snapshot()
+    out = {"captures": counts["captures"],
+           "replays_in_serve": sum(r["graphs"]["replays"]
+                                   for r in runs.values()),
+           "capture_s": runs["cold"]["graphs"]["capture_s"],
+           "tok_per_s": {run: r["rep"].new_tokens / max(r["rep"].time_s,
+                                                        1e-9)
+                         for run, r in runs.items()},
+           "time_s": {run: r["rep"].time_s for run, r in runs.items()},
+           "launches": runs["warm"]["launches"],
+           "peak_gb": peak / 1e9, "one_chunk": times,
+           "last_logits_bit_equal": graph_equal,
+           "eager_runs_bit_equal": eager_equal,
+           "max_abs_dlogit": {"graphs_vs_eager": graph_dist,
+                              "eager_vs_eager": eager_dist},
+           "tokens_differing": token_mismatch}
+    log(f"17 graphs against eager ({cfg.arch_id}, full width, "
+        f"{GRAPH_REQUESTS} x {JOB_PROMPT} + {JOB_DECODE}, chunks of 8): "
+        + json.dumps(out))
+    if token_mismatch:
+        raise AssertionError(f"{cfg.arch_id}: graphed tokens differ from "
+                             f"eager at {token_mismatch}")
+    if not graph_equal and (eager_equal or graph_dist > eager_dist):
+        raise AssertionError(f"{cfg.arch_id}: graphed logits {graph_dist} "
+                             f"from eager; eager runs {eager_dist} apart")
+    return {k: sum(r["launches"][k] for r in runs.values())
+            for k in runs["cold"]["launches"]}
+
+
+def phase_graphs(dev):
+    """Phase 17: ``phase_graphs_family`` for each of ``GRAPH_ARCHS`` at
+    full width, random weights from a torch.Generator seeded with 0."""
+    counts = {}
+    for arch in GRAPH_ARCHS:
+        cfg, params = full_width_model(dev, arch)
+        counts[f"{arch} graphs vs eager"] = phase_graphs_family(dev, cfg,
+                                                                params)
+        del params
+        free_model()
     return counts
 
 
@@ -2031,6 +2262,7 @@ def _bulk_out(eng, res, energy):
 def _dynamic_out(eng, energy):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = eng.graph_counts.snapshot()
     _zero_launches()
     rep = eng.serve(BULK_REQUESTS)
     counts = _launches()
@@ -2041,7 +2273,19 @@ def _dynamic_out(eng, energy):
     out = _run_out(rep.time_s, rep.overheads, energy, rep.new_tokens,
                    dict(rep.per_group_items))
     out["launches"] = counts
+    out["graphs"] = _expect_graphs(
+        eng, before, rep.overheads["accel"]["n_chunks"], eng.decode_tokens,
+        "dynamic run")
     return out, rep.tokens_out
+
+
+def _capture_buckets(eng, buckets):
+    """Capture the accel executor's graphs of ``buckets`` ahead of the
+    timed runs, so that no run pays for a capture."""
+    ex = eng._executor_for(next(g for g in eng.groups if g.name == "accel"))
+    for b in buckets:
+        eng._fns_for(b, ex)
+    torch.cuda.synchronize()
 
 
 def phase_bulk_full_width(dev, cfg, params, watts):
@@ -2063,16 +2307,22 @@ def phase_bulk_full_width(dev, cfg, params, watts):
         params=params)
     bulk = _bulk_scheduler(eng)
     _bulk_out(eng, bulk.run(0, BULK_REQUESTS, 1.0), energy)    # warm-up
+    _capture_buckets(eng, (8,))
+    log("15a graphs captured (buckets 64 and 8): " + json.dumps(
+        eng.graph_counts.snapshot()["capture_log"]))
     runs, tokens = {"bulk": [], "dynamic": []}, {}
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = eng.graph_counts.snapshot()
         _zero_launches()
         res = bulk.run(0, BULK_REQUESTS, 1.0)
         bulk_counts = _launches()
         torch.cuda.synchronize()
         out, tokens["bulk"] = _bulk_out(eng, res, energy)
         out["launches"] = bulk_counts
+        out["graphs"] = _expect_graphs(eng, before, 1, eng.decode_tokens,
+                                       "bulk run")
         _expect_launches(bulk_counts, 1, cfg.n_layers)
         if any(int(t.abs().sum()) for t in FD._counters.values()):
             raise AssertionError("a split-merge ticket was left set")
@@ -2086,13 +2336,17 @@ def phase_bulk_full_width(dev, cfg, params, watts):
         f"{watts} W): " + json.dumps(runs))
     bulk_reference(dev, cfg, params)
     # the bulk chunk once more with the plain versions in the kernels'
-    # place: the witness for how far bf16 alone moves the greedy tokens
+    # place: the witness for how far bf16 alone moves the greedy tokens.
+    # The engine's graphs hold the kernels, and the plain versions read
+    # values on the host, so this run is the engine's step eagerly
+    prompts = np.stack([eng._prompt(i) for i in range(BULK_REQUESTS)])
     _zero_launches()
     with plain_kernels():
-        res = bulk.run(0, BULK_REQUESTS, 1.0)
+        plain = _step_chunk(*_eager_fns(cfg, eng.max_len), params, {
+            "tokens": torch.as_tensor(prompts, device=dev)})[0]
     if sum(_launches().values()):
         raise AssertionError(f"plain bulk run launched {_launches()}")
-    tokens["plain bulk"] = _bulk_out(eng, res, energy)[1]
+    tokens["plain bulk"] = dict(enumerate(plain))
 
     def same(a, b):
         """Share of requests whose 16 tokens are all equal, share whose
@@ -2175,6 +2429,7 @@ def phase_oracle_sweep(dev, watts):
     energy = _energy_model(watts, ("cpu0",))
     eng = HeteroServeEngine(cfg, groups, prompt_len=128,
                             decode_tokens=JOB_DECODE, seed=0)
+    _capture_buckets(eng, (1, 2, 4, 8, 16, 32, 64))
     dynamic = [_dynamic_out(eng, energy)[0]]
     bulk = _bulk_scheduler(eng)
     splits, run = [], bulk.run
@@ -2188,9 +2443,11 @@ def phase_oracle_sweep(dev, watts):
         return res
 
     bulk.run = recording_run
+    before = eng.graph_counts.snapshot()
     _zero_launches()
     best = bulk.oracle(0, BULK_REQUESTS)
     counts = _launches()
+    sweep_graphs = eng.graph_counts.snapshot()
     dynamic.append(_dynamic_out(eng, energy)[0])
     fracs = [res.frac for res, _ in splits]
     if fracs != [k / 10 for k in range(11)]:
@@ -2201,6 +2458,12 @@ def phase_oracle_sweep(dev, watts):
     accel_runs = sum(1 for res, _ in splits if res.per_group_items.get(
         "accel", 0))
     _expect_launches(counts, accel_runs, cfg.n_layers)
+    if sweep_graphs["captures"] != before["captures"] \
+            or sweep_graphs["failures"] \
+            or sweep_graphs["replays"] - before["replays"] \
+            != accel_runs * JOB_DECODE:
+        raise AssertionError(f"the sweep's graphs: {sweep_graphs} after "
+                             f"{before}, {accel_runs} accel chunks")
     (best_out,) = [out for res, out in splits if res is best]
     rows = [{"frac": out["frac"], "time_s": out["time_s"],
              "items": out["items"], "edp_js": out["edp_js"],
@@ -2614,6 +2877,7 @@ def main():
         seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
     del params
     free_model()
+    counts.update(phase_graphs(dev))
     phase_dry_run(train_out["max_memory_allocated"])
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",

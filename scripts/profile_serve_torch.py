@@ -6,17 +6,21 @@
 Builds the port's engine on a full-width model (``--arch``, default
 stablelm-1.6b; random bf16 weights, one group ``accel:chunk=8:async=2`` on
 cuda:0, prompts of 512 tokens, 16 decode tokens), serves 8 requests once to
-warm up, then serves 16 requests (2 chunks) twice: once bare, for the wall
-time, and once under ``torch.profiler`` with CPU and CUDA activities.
-Prints, as JSON lines:
+warm up (which captures the executor's CUDA graphs of the bucket of 8:
+the engine serves a CUDA group through graphs only), then serves 16
+requests (2 chunks) twice: once bare, for the wall time, and once under
+``torch.profiler`` with CPU and CUDA activities. Prints, as JSON lines:
 
+- the graphs' captures and replays, and the capture's seconds;
 - the bare and the profiled wall time of the 16 requests;
 - device busy time (the union of all GPU kernel and copy intervals) and
   the idle share of the profiled window;
 - GPU time per kernel name, the largest first;
-- the number of kernel launches and the host time spent launching them;
-- the model's own split of one chunk (8 prompts): the wall time of its
-  prefill and of its 15 decode steps, each ended by a synchronise.
+- the number of kernel launches and of graph launches, and the host time
+  spent in them;
+- the split of one chunk (8 prompts), eager (``M.prefill`` /
+  ``M.decode_step``) and through the executor's graphs: the wall time of
+  its prefill and of its 15 decode steps, each ended by a synchronise.
 
 The profiler adds host time per operator, so the profiled idle share is an
 upper bound of the bare run's. Exits non-zero without a CUDA device.
@@ -98,6 +102,12 @@ def main():
     launches = [e for e in events if e.device_type == DeviceType.CPU
                 and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                "cudaLaunchKernelExC", "cuLaunchKernelEx")]
+    graph_launches = [e for e in events if e.device_type == DeviceType.CPU
+                      and e.name in ("cudaGraphLaunch", "cuGraphLaunch")]
+    counts = eng.graph_counts.snapshot()
+    print(json.dumps({"graphs": {k: counts[k] for k in
+                                 ("captures", "replays", "failures",
+                                  "capture_log")}}))
     print(json.dumps({
         "arch": cfg.arch_id, "card": torch.cuda.get_device_name(0),
         "requests": bare.requests, "chunks": bare.overheads["accel"]
@@ -112,7 +122,10 @@ def main():
         "idle_share_of_gpu_window": (1.0 - busy_us / window_us)
         if window_us else None,
         "kernel_launches": len(launches),
-        "host_launch_s": sum(e.cpu_time_total for e in launches) / 1e6}))
+        "host_launch_s": sum(e.cpu_time_total for e in launches) / 1e6,
+        "graph_launches": len(graph_launches),
+        "host_graph_launch_s": sum(e.cpu_time_total
+                                   for e in graph_launches) / 1e6}))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({"gpu_time_by_kernel": [
         {"name": name[:90], "calls": n, "gpu_s": us / 1e6}
@@ -120,22 +133,30 @@ def main():
 
     tokens = torch.from_numpy(
         np.stack([eng._prompt(i) for i in range(8)])).to(dev)
-    with torch.no_grad():
-        for _ in range(2):               # the second run's times are kept
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = M.prefill(cfg, params, tokens,
-                                      max_len=eng.max_len)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(15):
-                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-                logits, cache = M.decode_step(cfg, params, cache, tok)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-    print(json.dumps({"one_chunk": {"prefill_s": t1 - t0,
-                                    "decode_15_steps_s": t2 - t1,
-                                    "decode_step_s": (t2 - t1) / 15}}))
+    prefix = torch.randn(8, cfg.prefix_len, cfg.d_model, device=dev) \
+        * 0.02 if cfg.prefix_len else None
+    eager = (lambda p, t: M.prefill(cfg, p, t, prefix, max_len=eng.max_len),
+             lambda p, c, t: M.decode_step(cfg, p, c, t))
+    prefill_fn, decode_fn = eng._fns_for(
+        8, eng._executor_for(eng.groups[0]))
+    graphed = (lambda p, t: prefill_fn(p, t, prefix), decode_fn)
+    for name, (prefill, decode) in (("eager", eager), ("graphed", graphed)):
+        with torch.no_grad():
+            for _ in range(2):           # the second run's times are kept
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = prefill(params, tokens)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(15):
+                    tok = logits[:, -1].argmax(-1, keepdim=True) \
+                        .to(torch.int32)
+                    logits, cache = decode(params, cache, tok)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        print(json.dumps({f"one_chunk_{name}": {
+            "prefill_s": t1 - t0, "decode_15_steps_s": t2 - t1,
+            "decode_step_s": (t2 - t1) / 15}}))
 
 
 if __name__ == "__main__":

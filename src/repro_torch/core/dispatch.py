@@ -113,6 +113,7 @@ class TorchChunkExecutor(ChunkExecutor):
     step(device_inputs) -> outputs (device tensors; enqueued, not waited on)
     fetch(outputs) -> small host metrics (device-to-host phase)
 
+    ``name`` labels the executor (the engine's namespaced group name).
     On CUDA every chunk runs on the executor's own ``torch.cuda.Stream``:
     inputs go from pinned host memory with ``non_blocking=True``
     (tg1→tg2), the step is enqueued (tg3 when the enqueue returns), and
@@ -133,12 +134,13 @@ class TorchChunkExecutor(ChunkExecutor):
                  fetch: Optional[Callable[[Any], Any]] = None,
                  device=None, async_depth: int = 1,
                  priority_boost: bool = False,
-                 completion_mode: str = "poll"):
+                 completion_mode: str = "poll", name: str = ""):
         if completion_mode not in ("poll", "block"):
             raise ValueError(f"completion_mode must be 'poll' or 'block', "
                              f"got {completion_mode!r}")
         if device is None:
             raise ValueError("TorchChunkExecutor needs an explicit device")
+        self.name = name
         self.step = step
         self.make_inputs = make_inputs
         self.fetch = fetch or (lambda outs: None)
@@ -164,6 +166,12 @@ class TorchChunkExecutor(ChunkExecutor):
             self.boosted = try_boost_priority()
 
     # -- device plumbing -----------------------------------------------
+    @property
+    def stream(self) -> Optional[torch.cuda.Stream]:
+        """The executor's CUDA stream (None on the CPU): every chunk's
+        copies and step run on it."""
+        return self._stream
+
     def _stream_ctx(self):
         return torch.cuda.stream(self._stream) \
             if self._stream is not None else contextlib.nullcontext()

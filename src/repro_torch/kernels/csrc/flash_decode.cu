@@ -47,7 +47,8 @@
 //     O / max(L, 1e-37). It then resets its counter to 0, so a later call,
 //     or a replay of a captured CUDA graph, finds the counters at zero.
 //     One launch per call; the wrapper keeps one counter array per
-//     (device, stream), since calls on two streams would race on it.
+//     (device, stream, b * g), since calls on two streams would race on
+//     it, and never frees one, since a captured graph keeps its address.
 // Softmax in base 2 with the scale folded into one FMA, as in
 // flash_attention.cu; P is rounded to bf16 before P V, as the reference
 // casts it.

@@ -27,13 +27,14 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, cost
+from repro_torch.kernels import _build, cost, launch_count
 from repro_torch.kernels._checks import (HEAD_DIMS, check_attention_sizes,
                                          check_cuda_bf16, check_no_grad,
                                          check_rows)
 
 NEG_INF = -1e30
-#: kernel launches made by flash_attention() (the CUDA route only)
+#: kernel launches made by flash_attention() (the CUDA route only), counted
+#: through ``launch_count``, which keeps them exact under CUDA graphs
 launches = 0
 _launches_lock = threading.Lock()
 
@@ -106,7 +107,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     return_lse: bool = False):
     """q (b, sq, h, d); k, v (b, skv, kvh, d) -> o (b, sq, h, d), and with
     ``return_lse`` (o, L (b, h, sq) fp32)."""
-    global launches
     if q.device.type == "meta" and cost.evaluating():
         check_no_grad("flash_attention", q=q, k=k, v=v)
         return _abstract(q, k, v, causal, q_offset, return_lse)
@@ -148,6 +148,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    with _launches_lock:        # exact under concurrent callers
-        launches += 1
+    launch_count.launched("flash_attention")
     return out if lse is None else (out, lse)

@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, cost
+from repro_torch.kernels import _build, cost, launch_count
 from repro_torch.kernels._checks import (HEAD_DIMS, check_cuda_bf16,
                                          check_no_grad, check_rows)
 
@@ -44,14 +44,17 @@ TILE_ROWS = 16
 MIN_SPLIT_ROWS = 16 * TILE_ROWS
 #: the most blocks along the cache per (b, kv head)
 MAX_SPLIT = 64
-#: kernel launches made by flash_decode() (the CUDA route only)
+#: kernel launches made by flash_decode() (the CUDA route only), counted
+#: through ``launch_count``, which keeps them exact under CUDA graphs
 launches = 0
 _launches_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: (device index, stream) -> the split merge's int32 tickets, one per
-#: (b, kv head), zero between calls (the merging block resets its own)
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+#: (device index, stream, b * kv heads) -> the split merge's int32
+#: tickets, one per (b, kv head), zero between calls (the merging block
+#: resets its own). A buffer is never replaced or freed: a captured CUDA
+#: graph keeps the address it was given
+_counters: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -98,9 +101,9 @@ def _sm_count(index: int) -> int:
 
 def _tickets(device: torch.device, stream: torch.cuda.Stream,
              n: int) -> torch.Tensor:
-    key = (device.index, stream.cuda_stream)
+    key = (device.index, stream.cuda_stream, n)
     buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
+    if buf is None:
         buf = _counters[key] = torch.zeros(n, dtype=torch.int32,
                                            device=device)
     return buf
@@ -175,7 +178,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """q (b, 1, h, d); caches (b, S, kvh, d); kv_len (b,) int32 ->
     (b, 1, h, d). ``n_split`` (CUDA only) overrides ``split_count``: the
     tests force the merge with it, chip_smoke.py times other counts."""
-    global launches
     if q.device.type == "meta" and cost.evaluating():
         check_no_grad("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
         # kv_len has no values here: every row of the cache is charged
@@ -234,6 +236,5 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if rc:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")
-    with _launches_lock:        # exact under concurrent callers
-        launches += 1
+    launch_count.launched("flash_decode")
     return out

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, cost
+from repro_torch.kernels import _build, cost, launch_count
 from repro_torch.kernels._checks import (check_cuda_bf16, check_no_grad,
                                          check_rows)
 
@@ -41,7 +41,8 @@ NEG_INF = -1e30
 SHAPES = ((16, 8), (64, 64))
 #: the largest chunk the kernel's shared memory is sized for
 MAX_CHUNK = 128
-#: kernel launches made by ssd_scan() (the CUDA route only)
+#: kernel launches made by ssd_scan() (the CUDA route only), counted
+#: through ``launch_count``, which keeps them exact under CUDA graphs
 launches = 0
 _launches_lock = threading.Lock()
 
@@ -173,7 +174,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x (b, s, nh, P); dt (b, s, nh); A (nh,); B, C (b, s, g, N);
     init_state (b, nh, P, N) or None -> (y (b, s, nh, P), final state
     (b, nh, P, N) fp32)."""
-    global launches
     if x.device.type == "meta" and cost.evaluating():
         check_no_grad("ssd_scan", x=x, dt=dt, A=A, B=B, C=C,
                       init_state=init_state)
@@ -209,6 +209,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.device.index, stream.cuda_stream)
     if rc:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    with _launches_lock:        # exact under concurrent callers
-        launches += 1
+    launch_count.launched("ssd_scan")
     return y, state

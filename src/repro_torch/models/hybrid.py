@@ -180,7 +180,7 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor):
     """One decode step. tokens: (b, 1). Returns (logits, cache): the same
     dict, its SSM states, conv windows and each application's K/V row at
-    ``pos`` updated in place, and ``pos`` advanced."""
+    ``pos`` updated in place, and ``pos`` advanced in place."""
     b = tokens.shape[0]
     pos = cache["pos"]                                   # (b,) int32
     x = settle(F.embedding(tokens, params["embed"]))     # (b, 1, d)
@@ -215,5 +215,5 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
                                      x, cache["tail_state"][ti],
                                      cache["tail_conv"][ti])
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
-    cache["pos"] = kv_len
+    pos.add_(1)                                          # now kv_len
     return tfm.logits_fwd(cfg, params, x), cache

@@ -95,10 +95,11 @@ def layer_params(blocks: Dict, i: int) -> Dict:
 # forward pieces
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _rope(cfg: LMConfig, device: torch.device) -> Tuple[torch.Tensor, int]:
     # built once per (config, device): a host-to-device copy inside a step
-    # would synchronise the host with the stream
+    # would synchronise the host with the stream. Never evicted: a captured
+    # CUDA graph reads the table at the address it had at capture
     return rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
                       cfg.rope_theta, device)
 
@@ -334,8 +335,9 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
 
     Unlike the JAX version, which is functional and returns a new cache,
     this writes each row's new K/V into the preallocated cache in place at
-    that row's ``pos`` and advances ``pos``; the returned cache is the same
-    dict."""
+    that row's ``pos`` and advances ``pos`` in place; the returned cache is
+    the same dict, every leaf the same tensor (a captured CUDA graph of the
+    step reads and writes them at their addresses)."""
     b = tokens.shape[0]
     pos = cache["pos"]                                   # (b,) int32
     x = settle(F.embedding(tokens, params["embed"]))     # (b, 1, d)
@@ -363,5 +365,5 @@ def decode_step(cfg: LMConfig, params: Dict, cache: Dict,
                        "act_embed")
         x = ffn_block_fwd(cfg, bp, x)
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
-    cache["pos"] = kv_len
+    pos.add_(1)                                          # now kv_len
     return logits_fwd(cfg, params, x), cache

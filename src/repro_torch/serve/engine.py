@@ -17,6 +17,13 @@ with a config of another dtype is refused before any weight is placed.
 The engine holds one copy of the weights per device that a group uses;
 every executor on a device, of every federated runtime, reads that copy.
 Each executor has its own CUDA stream.
+
+``_fns_for(b)`` is the JAX engine's per-bucket ``jax.jit`` of ``prefill``
+and ``decode_step``. On a CUDA group its functions replay CUDA graphs
+captured once per (executor, bucket) on the executor's stream
+(``serve.graphs``); ``graph_counts`` counts the captures, replays and
+failures. There is no eager path on CUDA: a capture that fails raises. A
+CPU group calls the model eagerly.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +45,7 @@ from repro_torch.core.energy import EnergyModel
 from repro_torch.models import model as M
 from repro_torch.queue import (AdmissionController, Job, JobService,
                                JournalStore, QueueManager, percentiles)
+from repro_torch.serve.graphs import GraphCounts, GraphedStep
 from repro_torch.tenancy import (ShardedQueueManager, TenantAccountant,
                                  TenantRegistry)
 
@@ -171,6 +179,12 @@ class HeteroServeEngine:
         for dev in self.devices.values():
             if dev not in self._params:
                 self._params[dev] = _to_device(params, dev)
+        # (executor or None, bucket) -> (prefill_fn, decode_fn): None
+        # keys the eager functions every CPU executor shares; a CUDA
+        # executor has graphs of its own
+        self._fns: Dict[Tuple[Optional[TorchChunkExecutor], int],
+                        tuple] = {}
+        self.graph_counts = GraphCounts()
         # fail-injection counters persist across executors so an injected
         # group death stays dead over a queued multi-batch run
         self._fail_counters: Dict[str, Dict[str, int]] = {}
@@ -179,6 +193,39 @@ class HeteroServeEngine:
         self._executors: Dict[str, TorchChunkExecutor] = {}
 
     # ------------------------------------------------------------------
+    def _fns_for(self, b: int,
+                 executor: Optional[TorchChunkExecutor] = None):
+        """(prefill_fn, decode_fn) for batch bucket ``b``, cached:
+        ``prefill_fn(params, tokens, prefix) -> (logits, cache)`` and
+        ``decode_fn(params, cache, tokens) -> (logits, cache)``. Without
+        an executor, or for a CPU one, they call the model eagerly; for a
+        CUDA executor they replay that executor's graphs of the bucket,
+        captured on its stream at the first call (``GraphedStep``), whose
+        outputs the next replay overwrites."""
+        cuda = executor is not None and executor.device.type == "cuda"
+        key = (executor if cuda else None, b)
+        fns = self._fns.get(key)
+        if fns is not None:
+            return fns
+        cfg = self.cfg
+        if cuda:
+            graphs = GraphedStep(cfg, self._params[executor.device], b,
+                                 self.prompt_len, self.max_len,
+                                 executor.stream, self.graph_counts,
+                                 executor.name)
+            fns = (graphs.prefill, graphs.decode)
+        else:
+            def prefill_fn(params, tokens, prefix):
+                return M.prefill(cfg, params, tokens, prefix,
+                                 max_len=self.max_len)
+
+            def decode_fn(params, cache, tokens):
+                return M.decode_step(cfg, params, cache, tokens)
+
+            fns = (prefill_fn, decode_fn)
+        self._fns[key] = fns
+        return fns
+
     def _prompt(self, idx: int, rng_salt: int = 0) -> np.ndarray:
         rng = np.random.Generator(np.random.PCG64(
             (self.seed << 32) ^ (idx + rng_salt)))
@@ -211,22 +258,25 @@ class HeteroServeEngine:
 
         @torch.no_grad()
         def step(batch):
+            # fail injection and the slowdown stay on the host, outside
+            # any graph
             if g.fail_after_chunks is not None:
                 counter["n"] += 1
                 if counter["n"] > g.fail_after_chunks:
                     raise ChunkFailure(f"group {g.name} injected failure")
-            tokens = batch["tokens"]
+            b = batch["tokens"].shape[0]
+            prefill_fn, decode_fn = self._fns_for(b, ex)
             if g.slowdown > 1.0:
-                time.sleep((g.slowdown - 1.0) * 0.001 * tokens.shape[0])
+                time.sleep((g.slowdown - 1.0) * 0.001 * b)
             # greedy decoding stays on the device: no token comes back to
-            # the host before fetch()
-            logits, cache = M.prefill(cfg, params, tokens,
-                                      batch.get("prefix_emb"),
-                                      max_len=self.max_len)
+            # the host before fetch(). Each argmax is a new tensor, read
+            # from the logits before the next replay overwrites them.
+            logits, cache = prefill_fn(params, batch["tokens"],
+                                       batch.get("prefix_emb"))
             tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
             toks = [tok]
             for _ in range(self.decode_tokens - 1):
-                logits, cache = M.decode_step(cfg, params, cache, tok)
+                logits, cache = decode_fn(params, cache, tok)
                 tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
                 toks.append(tok)
             return torch.cat(toks, dim=1)
@@ -234,9 +284,11 @@ class HeteroServeEngine:
         def fetch(outs):
             return {"tokens_out": outs.cpu().numpy()}
 
-        return TorchChunkExecutor(step, make_inputs, fetch, device=device,
-                                  async_depth=g.async_depth,
-                                  priority_boost=g.priority_boost)
+        ex = TorchChunkExecutor(step, make_inputs, fetch, device=device,
+                                async_depth=g.async_depth,
+                                priority_boost=g.priority_boost,
+                                name=key or g.name)
+        return ex
 
     def _executor_for(self, g: GroupDef,
                       namespace: str = "") -> TorchChunkExecutor:

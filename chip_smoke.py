@@ -115,7 +115,11 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       falls, every step covers 32 examples, flash-attention launches
       exactly 2 x 24 a chunk (the forward and the recompute) and no other
       kernel launches; time per step, tokens/s and peak memory, with one
-      synchronise, at the end of the window;
+      synchronise, at the end of the window. Every training phase on the
+      card runs the trainer's CUDA graphs (``_grad_fn``: one graph of the
+      chunk's forward and backward captured per executor and batch
+      bucket, a replay a chunk): each pair captured once, no capture or
+      replay failing, and each capture's pool bytes reported;
    f. (run after d, on its weights) the update's ordering: three steps of
       stablelm-1.6b cut to 2 layers with no synchronise between them give
       the bits of the same steps synchronised after each;
@@ -185,6 +189,19 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    than they are); per family the captures, replays, capture seconds,
    tok/s cold and warm, peak memory, and ``one_chunk_times`` eager and
    graphed;
+18. (run after each family's training main path, on its weights) the
+   trainer's graphs against its eager step, at 13d / 14c's configuration
+   for stablelm-1.6b, granite-moe-1b-a400m, zamba2-1.2b and xlstm-350m:
+   from the same weights, 3 AdamW steps with every chunk's step eager,
+   then 3 through the graphs; every step's loss and the weights and AdamW
+   state after the last bit-equal, launches exact in both runs and a
+   replay's equal to a chunk's, then one chunk's gradients, loss * n and
+   n replayed against the eager step's on the same batch, bit-equal; s a
+   step, trained tok/s, peak memory, the capture's seconds and pool bytes
+   of each run; and (e, on stablelm-1.6b) ``tune_accel_chunk(4, 6)``
+   through the graphs: buckets 4 to 32 captured (a bucket that finds no
+   room drops the executor's others first), each bucket's pool, the
+   graphs dropped and the peak reported;
 16. (run last, in a child process, so that no process group meets the
    phases before it) the sharding rules, the meshes and the dry run:
    a. the power limit against ``launch.mesh.CHIP_ACTIVE_W`` and the idle
@@ -681,13 +698,14 @@ def _zero_launches():
 
 
 def _expect_graphs(eng, before, chunks, decode_tokens, what):
-    """The engine's CUDA graphs since ``before`` (a ``graph_counts``
-    snapshot): no capture or replay failed, each (executor, bucket) pair
-    captured once and every replayed pair captured, and a prefill and
-    ``decode_tokens - 1`` decode steps replayed for each of the
-    ``chunks`` chunks. Unless ``chunks`` is None (a drill may drop chunks
-    in flight, so its replays are reported, not held to them), this
-    run's captures are exactly the pairs it replayed that had not been
+    """The engine's (or a trainer's) CUDA graphs since ``before`` (a
+    ``graph_counts`` snapshot): no capture or replay failed, each
+    (executor, bucket) pair captured once and every replayed pair
+    captured, and a prefill and ``decode_tokens - 1`` decode steps
+    replayed for each of the ``chunks`` chunks (a trainer's chunk: one
+    replay, ``decode_tokens`` 1). Unless ``chunks`` is None (a drill may
+    drop chunks in flight, so its replays are reported, not held to
+    them), this run's captures are exactly the pairs it replayed that had not been
     captured before: the partitioner may carve a chunk of another bucket
     (a refill of ``int(remaining * lam / total_lam)`` items truncates
     to one fewer for some lam, leaving a last chunk of 1), and that
@@ -701,10 +719,9 @@ def _expect_graphs(eng, before, chunks, decode_tokens, what):
     out = {"captures": len(new), "replays": now["replays"]
            - before["replays"], "pairs": sorted(set(pairs)),
            "replayed": replayed,
-           "capture_s": [{k: e[k] for k in ("executor", "bucket",
-                                            "warmup_s", "prefill_capture_s",
-                                            "decode_capture_s")}
-                         for e in new]}
+           "capture_s": [{k: v for k, v in e.items()
+                          if k in ("executor", "bucket")
+                          or k.endswith("_s")} for e in new]}
     if now["failures"]:
         raise AssertionError(f"{what}: {now['failures']} graph captures or "
                              f"replays failed")
@@ -2006,6 +2023,7 @@ def phase_train_main(dev, cfg, params, per_chunk, steps=TRAIN_STEPS,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
+    before = tr.graph_counts.snapshot()
     records = []
     start = t0 = time.perf_counter()
     for _ in range(steps):
@@ -2029,9 +2047,15 @@ def phase_train_main(dev, cfg, params, per_chunk, steps=TRAIN_STEPS,
            "tok_per_s": sum(r["examples"] for r in records) * seq_len
            / wall_s,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "opt": oc, "seq_len": seq_len, "global_batch": global_batch}
+           "max_memory_reserved": torch.cuda.max_memory_reserved(),
+           "opt": oc, "seq_len": seq_len, "global_batch": global_batch,
+           "graphs": _expect_graphs(tr, before, chunks, 1,
+                                    f"{cfg.arch_id} training"),
+           "pool_bytes": [e["pool_bytes"] for e in
+                          tr.graph_counts.snapshot()["capture_log"]]}
     log(f"training main path report ({cfg.arch_id}): " + json.dumps(out))
     del tr
+    free_model()        # the trainer's AdamW state and graph pool
     if any(r["examples"] != global_batch
            or sum(r["items"].values()) != global_batch for r in records):
         raise AssertionError(f"a step did not cover {global_batch} examples")
@@ -2180,6 +2204,203 @@ def phase_train_hetero(dev):
                   "flash_decode": 0, "ssd_scan": 0}:
         raise AssertionError(f"kernel launches {counts} for {accel_chunks} "
                              f"accel chunks")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the trainer's graphs against the eager step, four families
+# ---------------------------------------------------------------------------
+
+#: phase 18's steps: the weights and AdamW state after them are compared
+GRAPHED_TRAIN_STEPS = 3
+
+
+def _eager_trainer():
+    """``HeteroTrainer`` with every chunk's step eager, as before the
+    trainer captured it (``chunk_grad_step`` is what its graphs
+    capture)."""
+    from functools import partial
+
+    from repro_torch.train.train_step import chunk_grad_step
+    from repro_torch.train.trainer import HeteroTrainer
+
+    class EagerTrainer(HeteroTrainer):
+        def _grad_fn(self, ex, b):
+            return partial(chunk_grad_step, self.cfg)
+
+    return EagerTrainer
+
+
+def _train_state(tr):
+    """The weights and the AdamW state (master, m, v), leaf by leaf."""
+    return [t for tree in (tr.params, tr.opt["master"], tr.opt["m"],
+                           tr.opt["v"]) for t in _leaves(tree)]
+
+
+def phase_train_graphs(dev, cfg, params, per_chunk, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH):
+    """18: the trainer's CUDA graphs against its eager step on ``params``
+    (a full-width model) at 13d / 14c's configuration
+    (``accel:chunk=8:async=2``, one repeated global batch): from the same
+    weights, ``GRAPHED_TRAIN_STEPS`` AdamW steps eagerly, then as many
+    through the graphs (one capture of bucket 8, a replay a chunk). The
+    losses of every step, and the weights and AdamW state after the last,
+    must be bit-equal; each run's launches ``per_chunk`` a chunk, and the
+    graph's launches a replay ``per_chunk``. Then one chunk replayed
+    against the eager step on the same batch: gradients, loss * n and n
+    bit-equal. Reports s a step, trained tok/s, peak memory, the capture's
+    seconds and pool bytes, per run."""
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import chunk_grad_step
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    steps = GRAPHED_TRAIN_STEPS
+    groups = [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=8,
+                       async_depth=2)]
+    oc = OptConfig(**dict(TRAIN_OC, total_steps=steps))
+    runs, launches = {}, {}
+    for mode, cls in (("eager", _eager_trainer()), ("graphed",
+                                                    HeteroTrainer)):
+        tr = cls(cfg, groups, seq_len=seq_len, global_batch=global_batch,
+                 oc=oc, seed=0, repeat_data=True,
+                 params=_map(torch.clone, params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        before = tr.graph_counts.snapshot()
+        losses, step_s, chunks = [], [], 0
+        start = t0 = time.perf_counter()
+        for _ in range(steps):
+            rep = tr.train_step()
+            t1 = time.perf_counter()
+            losses.append(rep.loss)
+            step_s.append(t1 - t0)
+            chunks += rep.overheads["accel"]["n_chunks"]
+            if rep.examples != global_batch:
+                raise AssertionError(f"18 {cfg.arch_id} {mode}: a step "
+                                     f"covered {rep.examples} examples")
+            t0 = t1
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        counts = _launches()
+        want = {k: chunks * per_chunk.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"18 {cfg.arch_id} {mode}: kernel launches "
+                                 f"{counts}, expected {want}")
+        launches[mode] = counts
+        out = {"losses": losses, "chunks": chunks, "step_s": step_s,
+               "s_per_step": wall_s / steps,
+               "tok_per_s": steps * global_batch * seq_len / wall_s,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+               "launches": counts}
+        if mode == "graphed":
+            out["graphs"] = _expect_graphs(tr, before, chunks, 1,
+                                           f"18 {cfg.arch_id}")
+            log_ = tr.graph_counts.snapshot()["capture_log"]
+            out["pool_gb"] = {e["bucket"]: e["pool_bytes"] / 1e9
+                              for e in log_}
+            out["launches_a_replay"] = [e["launches"] for e in log_]
+            if any({k: n for k, n in e["launches"].items() if n}
+                   != {k: n for k, n in per_chunk.items() if n}
+                   for e in log_):
+                raise AssertionError(f"18 {cfg.arch_id}: launches a replay "
+                                     f"{out['launches_a_replay']}, expected "
+                                     f"{per_chunk}")
+            # after the step of the capture
+            out["s_per_step_after_first"] = sum(step_s[1:]) / (steps - 1)
+            state = _train_state(tr)
+            differing = sum(not torch.equal(t, e.to(dev))
+                            for t, e in zip(state, runs["eager"]["state"]))
+            batch = {k: torch.from_numpy(a).to(dev)
+                     for k, a in tr.data.batch(0, 8).items()}
+            got = tr._grad_fn(tr._executor_for(groups[0]), 8)(tr.params,
+                                                                batch)
+            want_chunk = chunk_grad_step(cfg, tr.params, batch)
+            torch.cuda.synchronize()
+            chunk_differing = sum(
+                not torch.equal(a, b) for a, b in zip(
+                    list(_leaves(got[0])) + list(got[1:]),
+                    list(_leaves(want_chunk[0])) + list(want_chunk[1:])))
+            del got, want_chunk, batch, state
+            out.update(losses_equal=losses == runs["eager"]["losses"],
+                       state_leaves_differing=differing,
+                       state_leaves=len(runs["eager"]["state"]),
+                       chunk_leaves_differing=chunk_differing)
+        else:
+            out["state"] = [t.cpu() for t in _train_state(tr)]
+        runs[mode] = out
+        del tr
+        free_model()
+    eager = runs.pop("eager")
+    eager.pop("state")
+    report = {"eager": eager, "graphed": runs["graphed"],
+              "seq_len": seq_len, "global_batch": global_batch}
+    log(f"18 graphed training against eager ({cfg.arch_id}, full width, "
+        f"{steps} steps of {global_batch} x {seq_len}, chunks of 8): "
+        + json.dumps(report))
+    g = runs["graphed"]
+    if not g["losses_equal"] or g["state_leaves_differing"] \
+            or g["chunk_leaves_differing"]:
+        raise AssertionError(
+            f"18 {cfg.arch_id}: graphed training differs from eager: losses "
+            f"{g['losses']} against {eager['losses']}, "
+            f"{g['state_leaves_differing']} weight / AdamW leaves and "
+            f"{g['chunk_leaves_differing']} of a chunk's gradients differ")
+    if launches["graphed"] != launches["eager"]:
+        raise AssertionError(f"18 {cfg.arch_id}: launches {launches}")
+    return launches, report
+
+
+def _add_graphed_training(counts, arch, launches):
+    for mode, c in launches.items():
+        counts[f"{arch} {mode} training (18)"] = c
+
+
+def phase_tune_graphs(dev, cfg, params):
+    """18e: ``tune_accel_chunk(4, 6)`` on ``params`` (full-width
+    stablelm-1.6b) at 13d's seq_len and global batch: chunks 4 to 24 of
+    512 tokens, so buckets 4, 8, 16 and 32, each captured before it is
+    timed. No capture fails but for want of room, after which the
+    executor's other buckets are dropped and the capture succeeds;
+    reports the chunk chosen, each capture's bucket, seconds and pool
+    bytes, the graphs dropped, and the peak."""
+    from repro_torch.core.types import DeviceKind
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    tr = HeteroTrainer(cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev,
+                                      async_depth=2)],
+                       seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       oc=OptConfig(**TRAIN_OC), seed=0, repeat_data=True,
+                       params=_map(torch.clone, params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    chunk = tr.tune_accel_chunk(seed_chunk=4, multiples=6)
+    torch.cuda.synchronize()
+    snap = tr.graph_counts.snapshot()
+    out = {"chunk": chunk, "s": time.perf_counter() - t0,
+           "captures": [{k: e[k] for k in ("bucket", "warmup_s", "capture_s",
+                                           "pool_bytes")}
+                        for e in snap["capture_log"]],
+           "replays": snap["replays"], "drops": snap["drops"],
+           "failures": snap["failures"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "card_gb": torch.cuda.get_device_properties(dev).total_memory
+           / 1e9, "launches": _launches()}
+    log(f"18e tune_accel_chunk through the graphs ({cfg.arch_id}, full "
+        f"width, {TRAIN_SEQ} tokens): " + json.dumps(out))
+    del tr
+    free_model()
+    # a capture that found no room is a failure the trainer recovers
+    # from by dropping at least one other bucket's graph
+    buckets = [e["bucket"] for e in snap["capture_log"]]
+    if snap["failures"] > snap["drops"] \
+            or chunk not in (4, 8, 12, 16, 20, 24) \
+            or buckets[:1] != [4] or not set(buckets) <= {4, 8, 16, 32}:
+        raise AssertionError(f"18e: {out}")
+    return out["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2839,6 +3060,12 @@ def main():
     counts["stablelm-1.6b training"], train_out = phase_train_main(
         dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
     phase_train_ordering(dev, cfg, params)
+    # phase 18 on each family's weights, after its main path
+    trained = {}
+    launches, trained[cfg.arch_id] = phase_train_graphs(
+        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+    _add_graphed_training(counts, cfg.arch_id, launches)
+    counts["stablelm-1.6b tune (18e)"] = phase_tune_graphs(dev, cfg, params)
     del params
     free_model()
     phase_train_hetero(dev)
@@ -2851,6 +3078,9 @@ def main():
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
     phase_recompute_routing(dev, cfg, params)
+    launches, trained[cfg.arch_id] = phase_train_graphs(
+        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+    _add_graphed_training(counts, cfg.arch_id, launches)
     del params
     free_model()
     from repro_torch.models.hybrid import hybrid_layout
@@ -2863,9 +3093,13 @@ def main():
     # a chunk (forward, recompute), the tail blocks once, as in the JAX
     # package (src/repro/models/hybrid.py:63-67)
     n_groups, k, tail = hybrid_layout(cfg)
+    per_chunk = {"ssd_scan": 2 * n_groups * k + tail,
+                 "flash_attention": 2 * n_groups}
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
-        dev, cfg, params, {"ssd_scan": 2 * n_groups * k + tail,
-                           "flash_attention": 2 * n_groups})
+        dev, cfg, params, per_chunk)
+    launches, trained[cfg.arch_id] = phase_train_graphs(dev, cfg, params,
+                                                        per_chunk)
+    _add_graphed_training(counts, cfg.arch_id, launches)
     del params
     free_model()
     cfg, params = full_width_model(dev, "xlstm-350m")
@@ -2875,6 +3109,15 @@ def main():
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, {}, steps=XLSTM_TRAIN_STEPS,
         seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
+    launches, trained[cfg.arch_id] = phase_train_graphs(
+        dev, cfg, params, {}, seq_len=XLSTM_TRAIN_SEQ,
+        global_batch=XLSTM_TRAIN_BATCH)
+    _add_graphed_training(counts, cfg.arch_id, launches)
+    log("18 summary, graphed beside eager: " + json.dumps(
+        {arch: {mode: {k: r[mode][k] for k in ("s_per_step", "tok_per_s",
+                                               "peak_gb", "peak_reserved_gb")}
+                for mode in ("eager", "graphed")}
+         for arch, r in trained.items()}))
     del params
     free_model()
     counts.update(phase_graphs(dev))

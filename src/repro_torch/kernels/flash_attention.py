@@ -148,5 +148,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_count.launched("flash_attention")
+    launch_count.launched("flash_attention", stream)
     return out if lse is None else (out, lse)

@@ -236,5 +236,5 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if rc:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")
-    launch_count.launched("flash_decode")
+    launch_count.launched("flash_decode", stream)
     return out

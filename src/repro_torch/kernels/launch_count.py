@@ -6,14 +6,18 @@ launches its kernel. A CUDA graph breaks the one-to-one: while a graph is
 captured the wrappers run but launch nothing, and when it is replayed the
 kernels launch but no wrapper runs. So:
 
-- ``uncounted()`` tallies, per thread, the launches counted inside the
-  block and takes them back when the block ends (a capture, and the eager
-  warm-up before it);
+- ``uncounted(stream)`` tallies the launches counted inside the block and
+  takes them back when the block ends (a capture, and the eager warm-up
+  before it);
 - ``CountedGraph.replay()`` replays a graph and adds the tally of its
   capture, under the same locks.
 
-The tally is the capturing thread's own: launches that other threads make
-meanwhile (other executors' replays, say) are counted as usual.
+The tally is the capturing thread's own, and takes the launches other
+threads make on the capture's stream: the autograd engine runs a
+backward's operators (a recomputed block's kernels among them) on a
+thread of its own, on the stream of their forward. Launches that other
+threads make on other streams meanwhile (other executors' replays, say)
+are counted as usual.
 """
 from __future__ import annotations
 
@@ -23,6 +27,10 @@ import threading
 from typing import Dict, Iterator, Optional
 
 _tls = threading.local()
+#: a stream's ``cuda_stream`` -> the tally of the block ``uncounted`` holds
+#: on it; the lock guards this map and every tally's updates
+_stream_tallies: Dict[int, Dict[str, int]] = {}
+_tally_lock = threading.Lock()
 
 
 def _add(name: str, n: int) -> None:
@@ -31,28 +39,45 @@ def _add(name: str, n: int) -> None:
         mod.launches += n
 
 
-def launched(name: str) -> None:
-    """Count one launch of kernel ``name``: called by its wrapper right
-    after the launch (or, inside a capture, its recording)."""
+def launched(name: str, stream=None) -> None:
+    """Count one launch of kernel ``name`` on ``stream`` (a
+    ``torch.cuda.Stream``): called by its wrapper right after the launch
+    (or, inside a capture, its recording)."""
     _add(name, 1)
-    tally: Optional[Dict[str, int]] = getattr(_tls, "tally", None)
-    if tally is not None:
-        tally[name] = tally.get(name, 0) + 1
+    with _tally_lock:
+        tally: Optional[Dict[str, int]] = getattr(_tls, "tally", None)
+        if tally is None and stream is not None:
+            tally = _stream_tallies.get(stream.cuda_stream)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + 1
 
 
 @contextlib.contextmanager
-def uncounted() -> Iterator[Dict[str, int]]:
+def uncounted(stream=None) -> Iterator[Dict[str, int]]:
     """Yields the tally (kernel name -> launches) of this thread's
-    launches inside the block; at its end, even on an error, they are
-    taken back from the counts."""
+    launches inside the block and, where ``stream`` is given, of other
+    threads' launches on it while the block lasts; at its end, even on an
+    error, they are taken back from the counts."""
     outer = getattr(_tls, "tally", None)
     tally: Dict[str, int] = {}
-    _tls.tally = tally
+    key = None if stream is None else stream.cuda_stream
+    with _tally_lock:
+        _tls.tally = tally
+        if key is not None:
+            outer_on_stream = _stream_tallies.get(key)
+            _stream_tallies[key] = tally
     try:
         yield tally
     finally:
-        _tls.tally = outer
-        for name, n in tally.items():
+        with _tally_lock:
+            _tls.tally = outer
+            if key is not None:
+                if outer_on_stream is None:
+                    del _stream_tallies[key]
+                else:
+                    _stream_tallies[key] = outer_on_stream
+            taken = list(tally.items())
+        for name, n in taken:
             _add(name, -n)
 
 

@@ -209,5 +209,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.device.index, stream.cuda_stream)
     if rc:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    launch_count.launched("ssd_scan")
+    launch_count.launched("ssd_scan", stream)
     return y, state

@@ -20,12 +20,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import attend, decode_attention
-from repro_torch.models.layers import ParamDef, norm, norm_defs
+from repro_torch.models.layers import (ParamDef, checkpointed, norm,
+                                       norm_defs)
 from repro_torch.models.ssm import (mamba2_block_fwd, mamba2_decode_step,
                                     mamba2_defs, mamba2_dims)
 from repro_torch.sharding.partition import lshard, place, settle
@@ -78,8 +78,7 @@ def forward(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
     shared = params["shared_attn"]
     for gp in tfm.unbind_layers(params["groups"], n_groups):
         if remat:
-            x = checkpoint(_group_fwd, cfg, gp, shared, x, positions,
-                           use_reentrant=False)
+            x = checkpointed(_group_fwd, cfg, gp, shared, x, positions)
         else:
             x = _group_fwd(cfg, gp, shared, x, positions)
     if tail:

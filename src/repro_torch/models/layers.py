@@ -12,9 +12,19 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import _TORCH_DTYPES
 from repro_torch.sharding.partition import lshard, matmul
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward
+    (``jax.checkpoint`` in the JAX package). The RNG state is not saved
+    for the recompute: no forward draws a random number, and a CUDA graph
+    capture (the trainer's captured step) may not read the generator."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class ParamDef(NamedTuple):

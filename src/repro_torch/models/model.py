@@ -19,15 +19,14 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig, ShapeSuite
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (ParamDef, abstract_from_defs,
-                                       axes_from_defs, init_from_defs, norm,
-                                       norm_defs)
+                                       axes_from_defs, checkpointed,
+                                       init_from_defs, norm, norm_defs)
 from repro_torch.sharding.partition import place, settle
 
 #: the attention families, served by ``transformer``; ``ssm`` (xLSTM) is
@@ -77,7 +76,7 @@ def _xlstm_forward(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
     for mp, sp in zip(tfm.unbind_layers(params["m"], n_pairs),
                       tfm.unbind_layers(params["s"], n_pairs)):
         if remat:
-            x = checkpoint(_xlstm_pair, cfg, mp, sp, x, use_reentrant=False)
+            x = checkpointed(_xlstm_pair, cfg, mp, sp, x)
         else:
             x = _xlstm_pair(cfg, mp, sp, x)
     x = norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)

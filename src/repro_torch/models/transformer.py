@@ -18,14 +18,14 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (FlashAttentionFn, attend,
                                           chunked_attention, decode_attention)
 from repro_torch.models.layers import (ParamDef, apply_rope, mlp_defs,
-                                       mlp_fwd, norm, norm_defs, rope_freqs)
+                                       checkpointed, mlp_fwd, norm,
+                                       norm_defs, rope_freqs)
 from repro_torch.sharding.partition import (active_mesh, lshard, matmul,
                                            on_shards, place, run_local,
                                            settle)
@@ -243,8 +243,7 @@ def forward(cfg: LMConfig, params: Dict, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in unbind_layers(params["blocks"], cfg.n_layers):
         if remat:
-            x, a = checkpoint(block_fwd, cfg, bp, x, positions,
-                              use_reentrant=False)
+            x, a = checkpointed(block_fwd, cfg, bp, x, positions)
         else:
             x, a = block_fwd(cfg, bp, x, positions)
         aux = aux + a

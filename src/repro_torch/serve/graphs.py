@@ -61,26 +61,56 @@ def capture_lock(device: torch.device) -> threading.Lock:
                                          threading.Lock())
 
 
-def _same_leaves(a, b) -> bool:
+def same_leaves(a, b) -> bool:
     """Whether two weight trees hold the same tensors."""
     if isinstance(a, dict):
         return isinstance(b, dict) and a.keys() == b.keys() and all(
-            _same_leaves(a[k], b[k]) for k in a)
+            same_leaves(a[k], b[k]) for k in a)
     return a is b
 
 
+def replay(graph: CountedGraph, stream: torch.cuda.Stream, inputs,
+           counts: "GraphCounts", pair: Tuple[str, int], read=None):
+    """Copy ``inputs`` ((static buffer, tensor) pairs) and replay ``graph``
+    on ``stream``; then, still on ``stream``, ``read()`` what must be taken
+    from the static outputs before the next replay overwrites them, and
+    return it. A caller on another stream (the tests, chip_smoke.py) is
+    ordered around it both ways; an executor's own step, on that stream,
+    needs no ordering."""
+    caller = torch.cuda.current_stream(stream.device)
+    other = caller != stream
+    if other:
+        stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        for buf, t in inputs:
+            buf.copy_(t)
+        try:
+            graph.replay()
+        except BaseException:
+            counts.failed()
+            raise
+        out = read() if read is not None else None
+    counts.replayed(pair)
+    if other:
+        caller.wait_stream(stream)
+    return out
+
+
 class GraphCounts:
-    """An engine's graph counters, shared by its dispatcher threads:
-    captures (one per executor and bucket), replays (of either graph, per
-    (executor, bucket) too), failures (a capture or replay that raised),
-    and the seconds of each capture (``capture_end`` instantiates the
-    graph, so a capture's seconds include its instantiation)."""
+    """An engine's or a trainer's graph counters, shared by its dispatcher
+    threads: captures (one per executor and bucket), replays (of any of
+    its graphs, per (executor, bucket) too), failures (a capture or replay
+    that raised), graphs dropped to make room for another bucket's (the
+    trainer's), and the seconds of each capture (``capture_end``
+    instantiates the graph, so a capture's seconds include its
+    instantiation)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.captures = 0
         self.replays = 0
         self.failures = 0
+        self.drops = 0
         self.replays_by_pair: Dict[Tuple[str, int], int] = {}
         self.capture_log: List[Dict] = []
 
@@ -98,10 +128,14 @@ class GraphCounts:
         with self._lock:
             self.failures += 1
 
+    def dropped(self, n: int) -> None:
+        with self._lock:
+            self.drops += n
+
     def snapshot(self) -> Dict:
         with self._lock:
             return {"captures": self.captures, "replays": self.replays,
-                    "failures": self.failures,
+                    "failures": self.failures, "drops": self.drops,
                     "replays_by_pair": dict(self.replays_by_pair),
                     "capture_log": [dict(e) for e in self.capture_log]}
 
@@ -135,7 +169,7 @@ class GraphedStep:
     def _capture(self, max_len: int) -> None:
         cfg, params, stream = self.cfg, self.params, self.stream
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream), uncounted():
+        with torch.cuda.stream(stream), uncounted(stream):
             _, cache = M.prefill(cfg, params, self.tokens, self.prefix,
                                  max_len=max_len)
             M.decode_step(cfg, params, cache, self.token)
@@ -143,7 +177,7 @@ class GraphedStep:
         stream.synchronize()
         t1 = time.perf_counter()
         prefill = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream), uncounted() as tally:
+        with torch.cuda.stream(stream), uncounted(stream) as tally:
             prefill.capture_begin(capture_error_mode="thread_local")
             try:
                 self.logits, self.cache = M.prefill(
@@ -154,7 +188,7 @@ class GraphedStep:
         t2 = time.perf_counter()
         leaves = {k: (t, t.data_ptr()) for k, t in self.cache.items()}
         decode = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream), uncounted() as tally:
+        with torch.cuda.stream(stream), uncounted(stream) as tally:
             decode.capture_begin(pool=prefill.pool(),
                                  capture_error_mode="thread_local")
             try:
@@ -178,34 +212,13 @@ class GraphedStep:
 
     def _check(self, params: Dict, name: str, got: torch.Tensor,
                want: torch.Tensor) -> None:
-        if params is not self.params and not _same_leaves(params,
+        if params is not self.params and not same_leaves(params,
                                                           self.params):
             raise ValueError("the graphs read the weights they were "
                              "captured with; other weights were given")
         if got.shape != want.shape:
             raise ValueError(f"{name} {tuple(got.shape)}: the graph takes "
                              f"{tuple(want.shape)}")
-
-    def _run(self, graph: CountedGraph, inputs) -> None:
-        """Copy ``inputs`` ((static buffer, tensor) pairs) and replay
-        ``graph`` on the executor's stream. A caller on another stream
-        (the tests, chip_smoke.py) is ordered around it both ways; the
-        executor's own step, on that stream, needs no ordering."""
-        caller = torch.cuda.current_stream(self.stream.device)
-        other = caller != self.stream
-        if other:
-            self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
-            for buf, t in inputs:
-                buf.copy_(t)
-            try:
-                graph.replay()
-            except BaseException:
-                self.counts.failed()
-                raise
-        self.counts.replayed(self.pair)
-        if other:
-            caller.wait_stream(self.stream)
 
     def prefill(self, params: Dict, tokens: torch.Tensor,
                 prefix: Optional[torch.Tensor] = None):
@@ -219,7 +232,7 @@ class GraphedStep:
         if prefix is not None:
             self._check(params, "prefix", prefix, self.prefix)
             inputs.append((self.prefix, prefix))
-        self._run(self._prefill, inputs)
+        replay(self._prefill, self.stream, inputs, self.counts, self.pair)
         return self.logits, self.cache
 
     def decode(self, params: Dict, cache: Dict, tokens: torch.Tensor):
@@ -229,5 +242,6 @@ class GraphedStep:
         if cache is not self.cache:
             raise ValueError("the decode graph runs on its bucket's cache, "
                              "the one its prefill returned")
-        self._run(self._decode, [(self.token, tokens)])
+        replay(self._decode, self.stream, [(self.token, tokens)],
+               self.counts, self.pair)
         return self.decode_logits, self.cache

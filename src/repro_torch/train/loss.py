@@ -14,8 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.layers import checkpointed
 from repro_torch.sharding.partition import active_mesh, matmul, on_shards
 
 
@@ -84,8 +84,8 @@ def chunked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
     nll_sum, acc_sum, cnt = zero, zero, zero
     for c0 in range(0, s + pad, c):
         mb = mask[:, c0:c0 + c]
-        nll, acc = checkpoint(_chunk_sums, x[:, c0:c0 + c], w,
-                              labels[:, c0:c0 + c], mb, use_reentrant=False)
+        nll, acc = checkpointed(_chunk_sums, x[:, c0:c0 + c], w,
+                         labels[:, c0:c0 + c], mb)
         nll_sum, acc_sum, cnt = nll_sum + nll, acc_sum + acc, cnt + mb.sum()
     denom = torch.clamp(cnt, min=1.0)
     loss = nll_sum / denom

@@ -39,14 +39,16 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (in tree_leaves'
     order)."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _unflatten(node, it):
+    # a module-level recursion: a nested function calling itself would be
+    # a reference cycle holding ``it``, so ``leaves`` (a step's gradients)
+    # would live until the garbage collector next ran
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

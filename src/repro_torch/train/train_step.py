@@ -41,6 +41,16 @@ def grad_step(cfg: LMConfig, params, batch):
     return tree_unflatten(live, grads), metrics
 
 
+def chunk_grad_step(cfg: LMConfig, params, batch):
+    """A chunk's step as the hetero trainer combines it (the body of the
+    JAX trainer's ``_grad_fn``, whose ``g * n`` the combine does in fp32):
+    (grads, the loss times n, n), n the chunk's real examples (the rows
+    whose loss mask is set; padded rows have none)."""
+    grads, metrics = grad_step(cfg, params, batch)
+    n = batch["loss_mask"][:, 0].sum()
+    return grads, metrics["loss"].detach() * n, n
+
+
 def train_step(cfg: LMConfig, oc: OptConfig, params, opt, batch):
     """One optimizer step. Returns (params', opt', metrics)."""
     grads, metrics = grad_step(cfg, params, batch)

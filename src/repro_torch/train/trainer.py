@@ -23,12 +23,25 @@ real example count (what the JAX package's fp32 promotion of ``g * n``
 computes). The weights are written on each device's current stream (the
 update, the refresh of a copy); an event recorded there after the write
 orders every later chunk's stream behind it.
+
+``_grad_fn(executor, b)`` is the JAX trainer's ``_grad_fn``, which
+``jax.jit``s the gradient step once per chunk size. On a CUDA group it
+replays a CUDA graph of the step captured once per (executor, bucket) on
+the executor's stream (``train.graphs``); ``graph_counts`` counts the
+captures, replays and failures. There is no eager path on CUDA: a capture
+that fails raises. Each bucket's graph keeps a chunk's activations and
+gradients in a pool of its own; where a capture finds no room, the
+executor's other buckets' graphs are dropped (``graph_counts.dropped``)
+and the capture is tried once more. A CPU group calls the step eagerly.
+The executors are built once per group, so their graphs last across
+steps.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from functools import partial
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,10 +52,12 @@ from repro_torch.core.chunk_search import search_chunk
 from repro_torch.data.pipeline import for_model
 from repro_torch.models import model as M
 from repro_torch.serve.engine import resolve_device
+from repro_torch.serve.graphs import GraphCounts
+from repro_torch.train.graphs import GraphedGradStep
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                          init_opt_state, tree_leaves,
                                          tree_map, tree_unflatten)
-from repro_torch.train.train_step import grad_step
+from repro_torch.train.train_step import chunk_grad_step
 
 
 def bucket(n: int) -> int:
@@ -112,6 +127,17 @@ class HeteroTrainer:
         self._mark_written()
         self.step_idx = 0
         self.history: List[StepReport] = []
+        # one executor per group, for the trainer's life; the chunks each
+        # has run in the current step (or chunk-size search), which the
+        # fault injection counts as the JAX trainer's executor of a step does
+        self._executors: Dict[str, TorchChunkExecutor] = {}
+        self._chunks_run: Dict[str, int] = {}
+        # (executor or None, bucket) -> the chunk's step: None keys the
+        # eager step every CPU executor shares; a CUDA executor has graphs
+        # of its own
+        self._grad_fns: Dict[Tuple[Optional[TorchChunkExecutor], int],
+                             Callable] = {}
+        self.graph_counts = GraphCounts()
 
     # ------------------------------------------------------------------
     def load_state(self, params: Dict, opt: Dict, step: int) -> None:
@@ -124,6 +150,10 @@ class HeteroTrainer:
                                            dtype=torch.int32).cpu()
         self._copies = {d: tree_map(lambda t: t.to(d), self.params)
                         for d in self._copies}
+        # the graphs read the replaced tensors: drop them (between steps,
+        # when no replay is in flight); each is captured again on the new
+        # tensors at its bucket's next chunk
+        self._grad_fns.clear()
         self._mark_written()
         self.step_idx = step
 
@@ -143,8 +173,54 @@ class HeteroTrainer:
                                     tree_leaves(self.params)):
                     dst.copy_(src)
 
+    def _weights(self, device: torch.device) -> Dict:
+        """The weights a chunk on ``device`` reads."""
+        return self.params if device == self.device else self._copies[device]
+
+    def _grad_fn(self, ex: TorchChunkExecutor, b: int) -> Callable:
+        """The step of a chunk of bucket ``b`` on executor ``ex``, cached:
+        ``fn(params, batch) -> (grads, loss * n, n)``. For a CPU executor
+        it calls ``chunk_grad_step`` eagerly; for a CUDA executor it
+        replays the executor's graph of the bucket, captured on its stream
+        at the first call (``GraphedGradStep``)."""
+        cuda = ex.device.type == "cuda"
+        key = (ex if cuda else None, b)
+        fn = self._grad_fns.get(key)
+        if fn is not None:
+            return fn
+        if not cuda:
+            fn = partial(chunk_grad_step, self.cfg)
+        else:
+            def capture():
+                return GraphedGradStep(self.cfg, self._weights(ex.device), b,
+                                       self.seq_len, ex.stream,
+                                       self.graph_counts, ex.name)
+            mine = [k for k in list(self._grad_fns) if k[0] is ex]
+            try:
+                fn = capture()
+            except torch.cuda.OutOfMemoryError:
+                if not mine:
+                    raise
+            if fn is None:
+                # out of the handler, whose traceback held the failed
+                # capture's tensors; chunks of the dropped buckets may
+                # still be in flight
+                ex.stream.synchronize()
+                for k in mine:
+                    del self._grad_fns[k]
+                self.graph_counts.dropped(len(mine))
+                torch.cuda.empty_cache()
+                fn = capture()
+        self._grad_fns[key] = fn
+        return fn
+
+    def _executor_for(self, g: GroupDef) -> TorchChunkExecutor:
+        ex = self._executors.get(g.name)
+        if ex is None:
+            ex = self._executors[g.name] = self._make_executor(g)
+        return ex
+
     def _make_executor(self, g: GroupDef) -> TorchChunkExecutor:
-        cfg = self.cfg
         data = self.data
         device = self.devices[g.name]
         slowdown = g.slowdown
@@ -155,33 +231,31 @@ class HeteroTrainer:
             c = token.chunk
             return data.batch(c.begin, c.end, pad_to=bucket(c.size))
 
-        counter = {"n": 0}
-
         def step(batch):
             if g.fail_after_chunks is not None:
-                counter["n"] += 1
-                if counter["n"] > g.fail_after_chunks:
+                n = self._chunks_run[g.name] = \
+                    self._chunks_run.get(g.name, 0) + 1
+                if n > g.fail_after_chunks:
                     raise ChunkFailure(f"group {g.name} injected failure")
+            b = batch["tokens"].shape[0]
             if slowdown > 1.0:
-                time.sleep((slowdown - 1.0) * 0.001 * batch["tokens"].shape[0])
+                time.sleep((slowdown - 1.0) * 0.001 * b)
             # this device's weights: the update writes them in place, on
-            # another stream than this chunk's
-            params = self.params if device == self.device \
-                else self._copies[device]
+            # another stream than this chunk's. The wait stays outside the
+            # graph, before the batch is copied in.
             if device in self._written:
                 torch.cuda.current_stream(device).wait_event(
                     self._written[device])
-            grads, metrics = grad_step(cfg, params, batch)
-            n = batch["loss_mask"][:, 0].sum()     # real examples in chunk
-            return grads, metrics["loss"].detach() * n, n
+            return self._grad_fn(ex, b)(self._weights(device), batch)
 
         def fetch(outs):
             grads, loss_n, n = outs
             return {"grads": grads, "loss_n": float(loss_n), "n": float(n)}
 
-        return TorchChunkExecutor(step, make_inputs, fetch, device=device,
-                                  async_depth=g.async_depth,
-                                  priority_boost=g.priority_boost)
+        ex = TorchChunkExecutor(step, make_inputs, fetch, device=device,
+                                async_depth=g.async_depth,
+                                priority_boost=g.priority_boost, name=g.name)
+        return ex
 
     # ------------------------------------------------------------------
     def tune_accel_chunk(self, seed_chunk: int = 4, multiples: int = 6) -> int:
@@ -190,11 +264,13 @@ class HeteroTrainer:
         if not accel:
             return seed_chunk
         g = accel[0]
-        ex = self._make_executor(g)
+        ex = self._executor_for(g)
         self._space_offset = 0
+        self._chunks_run = {}
 
         def measure(c: int) -> float:
             c = min(c, self.global_batch)
+            self._grad_fn(ex, bucket(c))   # a capture is not timed
             from repro_torch.core.types import Chunk, Token
             tok = Token(Chunk(0, c, 0), g.name, g.kind)
             rec = ChunkRecord(tok)
@@ -219,7 +295,8 @@ class HeteroTrainer:
                 g.name, g.kind, fixed_chunk=g.fixed_chunk,
                 min_chunk=1, max_chunk=self.global_batch,
                 init_throughput=1.0)
-            execs[g.name] = self._make_executor(g)
+            execs[g.name] = self._executor_for(g)
+        self._chunks_run = {}
         sched = DynamicScheduler(specs, execs, alpha=self.alpha)
         self._space_offset = 0 if self.repeat_data \
             else self.step_idx * self.global_batch

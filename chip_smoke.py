@@ -9,10 +9,14 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    versions, and the build of every CUDA kernel from ``csrc/`` (one nvcc per
    source, all started together), with ptxas's registers, shared memory
    and spills per kernel, and the resident blocks per SM of every
-   instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+   with K1's shape at each head dim (its kernel, and the stages of its kv
+   ring and what copies them);
 2. each kernel against its plain PyTorch version on the card, in bf16 at
    the serving paths' shapes (K1 at each model's prefill: main, ragged,
-   gqa, d96, gqa8_d128, gqa2, and bulk64, phase 15a's chunk of 64; K2 at
+   gqa, d96, gqa8_d128, gqa2, and bulk64, phase 15a's chunk of 64; and
+   at head dim 128 for deepseek-7b and phi3-medium-14b: d128, gqa4_d128,
+   and long_d128 at a 4096-token prompt; K2 at
    each model's decode: main, ragged, gqa, d96, gqa8_d128, b1, gqa2, and
    bulk64, every split count of its sweep held too; K3 at zamba2's): max
    abs error and tolerance, two times per
@@ -91,7 +95,8 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    one chunk's prefill and decode step;
 13. training, with the serving models freed:
    a. flash-attention writing its row log-sum-exp L at phase 2's shapes
-      main, gqa, d96, gqa8_d128 and gqa2: L against the plain version's,
+      main, gqa, d96, gqa8_d128, gqa2, d128, gqa4_d128 and long_d128: L
+      against the plain version's,
       the output with L bit for bit the output without it, the device
       time with and without L, and with L back to back, beside
       ``aten._scaled_dot_product_flash_attention`` (output and L, the same
@@ -333,7 +338,8 @@ def phase_card():
             found = re.search(r"Compiling entry function '(\S+)'", line)
             if found:
                 entry = _kernel_name(found.group(1))
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
                 log(f"  {name} {entry}: {line.strip()}")
     return smi
 
@@ -355,10 +361,11 @@ def phase_occupancy(dev):
     from repro_torch.kernels._checks import HEAD_DIMS
     occ = {}
     for d in HEAD_DIMS:
-        blocks, smem = FA.occupancy(d, dev)
-        occ[f"flash_attention D={d}"] = blocks
-        log(f"flash_attention occupancy D={d}: {blocks} resident blocks per "
-            f"SM, {smem} bytes of dynamic shared memory per block")
+        fa = FA.occupancy(d, dev)
+        occ[f"flash_attention D={d}"] = fa.blocks
+        log(f"flash_attention occupancy D={d}: {fa.blocks} resident blocks "
+            f"per SM, {fa.smem_bytes} bytes of dynamic shared memory per "
+            f"block; {fa.kernel}, {fa.stages} stages copied by {fa.copy}")
     for d in HEAD_DIMS:
         for group in FD.GROUPS:
             blocks, smem = FD.occupancy(d, group, dev)
@@ -376,6 +383,15 @@ def phase_occupancy(dev):
     return occ
 
 
+#: K1 at head dim 128 beyond the served models' prefills: deepseek-7b (32
+#: heads of 128), phi3-medium-14b (40 query heads on 10 kv heads of 128),
+#: and phi3-medium-14b at a 4096-token prompt, where the FLOPs bound it
+#: (name, b, S, H, KVH, D); phases 2 and 13a
+K1_WIDE = [("d128", 8, 512, 32, 32, 128),
+           ("gqa4_d128", 8, 512, 40, 10, 128),
+           ("long_d128", 2, 4096, 40, 10, 128)]
+
+
 def phase_kernels(dev):
     import torch.nn.functional as F
     from repro_torch.kernels import cost
@@ -390,7 +406,8 @@ def phase_kernels(dev):
 
     rows = {"flash_attention": {"shapes": {}}, "flash_decode": {"shapes": {}}}
     # K1 at the prefill shapes of the five attention models served (b=8),
-    # causal, and at phase 15a's bulk chunk of 64
+    # causal, at phase 15a's bulk chunk of 64, and at D = 128 for two more
+    # registered models (K1_WIDE)
     fa_err = 0.0
     for name, b, sq, h, kvh, d in [("main", 8, 512, 32, 32, 64),
                                    ("ragged", 8, 1000, 32, 32, 64),
@@ -398,7 +415,8 @@ def phase_kernels(dev):
                                    ("d96", 8, 656, 32, 32, 96),
                                    ("gqa8_d128", 8, 512, 32, 4, 128),
                                    ("gqa2", 8, 512, 16, 8, 64),
-                                   ("bulk64", 64, 512, 32, 32, 64)]:
+                                   ("bulk64", 64, 512, 32, 32, 64),
+                                   *K1_WIDE]:
         q, k, v = rnd(b, sq, h, d), rnd(b, sq, kvh, d), rnd(b, sq, kvh, d)
         out = FA.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
@@ -1733,12 +1751,12 @@ def phase_lse(dev):
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(13)
     rows = {}
-    for name, sq, h, kvh, d in [("main", 512, 32, 32, 64),
-                                ("gqa", 512, 32, 8, 64),
-                                ("d96", 656, 32, 32, 96),
-                                ("gqa8_d128", 512, 32, 4, 128),
-                                ("gqa2", 512, 16, 8, 64)]:
-        b = 8
+    for name, b, sq, h, kvh, d in [("main", 8, 512, 32, 32, 64),
+                                   ("gqa", 8, 512, 32, 8, 64),
+                                   ("d96", 8, 656, 32, 32, 96),
+                                   ("gqa8_d128", 8, 512, 32, 4, 128),
+                                   ("gqa2", 8, 512, 16, 8, 64),
+                                   *K1_WIDE]:
         q, k, v = (torch.randn(b, sq, n, d, generator=gen, device=dev)
                    .to(torch.bfloat16) for n in (h, kvh, kvh))
         out = FA.flash_attention(q, k, v, causal=True)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -49,21 +49,32 @@ def _lib() -> ctypes.CDLL:
                    _I, _I, ctypes.c_float, _I, _P]
     fn.restype = _I
     occ = lib.repro_flash_attention_occupancy
-    occ.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    occ.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 5
     occ.restype = _I
     return lib
 
 
-def occupancy(d: int, device: torch.device) -> Tuple[int, int]:
-    """(resident blocks per SM, dynamic shared memory bytes per block) of
-    the kernel for head dim ``d`` on a CUDA ``device``."""
-    blocks, smem = _I(), _I()
+class Occupancy(NamedTuple):
+    """The shape the kernel takes at one head dim on one card."""
+    blocks: int        # resident blocks per SM
+    smem_bytes: int    # dynamic shared memory per block
+    kernel: str        # "wgmma" (D >= 64) or "mma.sync" (D 16, 32)
+    stages: int        # kv tiles in the shared-memory ring
+    copy: str          # "tma" (the Tensor Memory Accelerator) or "cp.async"
+
+
+def occupancy(d: int, device: torch.device) -> Occupancy:
+    """The shape and resident blocks per SM of the kernel for head dim
+    ``d`` on a CUDA ``device``."""
+    out = [_I() for _ in range(5)]
     rc = _lib().repro_flash_attention_occupancy(
-        d, device.index or 0, ctypes.byref(blocks), ctypes.byref(smem))
+        d, device.index or 0, *(ctypes.byref(x) for x in out))
     if rc:
         raise RuntimeError(f"flash_attention occupancy query failed: CUDA "
                            f"error {rc}")
-    return blocks.value, smem.value
+    blocks, smem, wgmma, stages, tma = (x.value for x in out)
+    return Occupancy(blocks, smem, "wgmma" if wgmma else "mma.sync", stages,
+                     "tma" if tma else "cp.async")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

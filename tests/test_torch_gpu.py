@@ -62,7 +62,8 @@ def test_flash_attention_every_head_dim_from_fused_qkv(d):
     """Every instantiated head dim, q/k/v sliced from one fused QKV
     projection (sequence stride (h + 2 kvh) d, not copied), GQA 4:1,
     ragged lengths that end inside a kv tile and a q tile, an explicit
-    q_offset (a prefill continuing a cache), and full attention."""
+    q_offset (a prefill continuing a cache), and full attention; the
+    last two at phi3-medium-14b's 40 query heads on 10 kv heads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -70,7 +71,9 @@ def test_flash_attention_every_head_dim_from_fused_qkv(d):
     for b, sq, h, kvh, off, causal in [(2, 200, 8, 2, 0, True),
                                        (1, 77, 8, 2, 45, True),
                                        (3, 130, 4, 1, 0, False),
-                                       (1, 1, 4, 4, 63, True)]:
+                                       (1, 1, 4, 4, 63, True),
+                                       (2, 300, 40, 10, 37, True),
+                                       (1, 333, 40, 10, 0, False)]:
         skv = sq + off
         qkv = torch.randn(b, skv, (h + 2 * kvh) * d, generator=gen,
                           device=dev).to(torch.bfloat16)
@@ -386,7 +389,8 @@ def test_moe_fwd_on_the_card_matches_the_cpu_and_repeats_its_bits():
 @pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 def test_flash_attention_lse_matches_plain_and_leaves_the_output(d):
     """The row log-sum-exp the training backward reads, at every head dim
-    (GQA 4:1, a length that ends inside a q tile, causal and full): within
+    (GQA 4:1, also at 40 query heads on 10, lengths that end inside a kv
+    tile and a q tile, causal and full): within
     rtol = atol = 1e-4 of the plain version's fp32 logsumexp (the kernel's
     sums are fp32 and its exponentials ex2.approx), and the output with L
     asked for equal bit for bit to the output without it."""
@@ -394,7 +398,9 @@ def test_flash_attention_lse_matches_plain_and_leaves_the_output(d):
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(100 + d)
-    for b, sq, h, kvh, causal in [(2, 200, 8, 2, True), (1, 77, 4, 4, False)]:
+    for b, sq, h, kvh, causal in [(2, 200, 8, 2, True), (1, 77, 4, 4, False),
+                                  (2, 300, 40, 10, True),
+                                  (1, 333, 40, 10, False)]:
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).bfloat16()
         k, v = (torch.randn(b, sq, kvh, d, generator=gen, device=dev)
                 .bfloat16() for _ in range(2))
@@ -409,7 +415,8 @@ def test_flash_attention_lse_matches_plain_and_leaves_the_output(d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,kvh,d", [(8, 8, 64), (8, 2, 128), (4, 4, 96)])
+@pytest.mark.parametrize("h,kvh,d", [(8, 8, 64), (8, 2, 128), (4, 4, 96),
+                                     (40, 10, 128), (40, 10, 96)])
 def test_flash_attention_fn_backward_matches_fp32_autograd(h, kvh, d):
     """FlashAttentionFn in bf16 on the card (the kernel's forward with L,
     the written-out backward) against autograd through the plain version in

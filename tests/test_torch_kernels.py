@@ -56,6 +56,7 @@ def _bh(x, b, heads):
     (1, 8, 1, 256, 64),     # MQA
     (2, 4, 2, 64, 128),     # wide head
     (1, 4, 4, 128, 96),     # phi-3-vision's head dim
+    (1, 40, 10, 128, 128),  # phi3-medium-14b's heads: GQA 4:1 of 40 at D 128
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_matches_pallas(b, h, kvh, s, d, causal):

@@ -331,6 +331,57 @@ def test_hetero_trainer_step_matches_jax(arch):
                                    atol=1e-5, err_msg=key)
 
 
+@pytest.mark.parametrize("eps,tol", [(1e-2, 2e-5), (1e-8, 1e-3)],
+                         ids=["eps-1e-2", "eps-default"])
+def test_moe_trainer_six_steps_match_jax(eps, tol):
+    """ROADMAP C16: reduced granite-moe in fp32 trained 6 AdamW steps at
+    lr 1e-3 (warm-up 1, total 6: chip_smoke.py's TRAIN_OC) on one repeated
+    global batch of 16 in two chunks of 8, through the JAX trainer and the
+    port's from the JAX trainer's own weights (the repo's random scale,
+    as the full-width run trains them). Step by step the reported loss and
+    the Switch aux loss of the step's weights on that batch agree within
+    ``tol`` relative, and both losses fall. With AdamW's eps at 1e-2
+    (test_hetero_trainer_step_matches_jax's setting) the two stay within
+    fp32 rounding, 2e-5 (measured 2.8e-6 for the loss, 3.7e-7 for the aux
+    loss at step 5). At the default eps 1e-8 a gradient entry that is fp32
+    noise in both packages takes a full lr step of either sign, so the
+    runs part by 2.1e-4 of the loss and 2.4e-4 of the aux loss (measured):
+    held to 1e-3."""
+    arch = "granite-moe-1b-a400m"
+    jcfg = jax_reduced(arch).replace(dtype="float32")
+    tcfg = get_reduced_config(arch).replace(dtype="float32")
+    oc = dict(lr=1e-3, warmup_steps=1, total_steps=6, eps=eps)
+    jt = jtrainer.HeteroTrainer(
+        jcfg, [jtrainer.GroupDef("accel", JDeviceKind.ACCEL, fixed_chunk=8,
+                                 async_depth=2)],
+        seq_len=SEQ, global_batch=16, oc=jopt.OptConfig(**oc), seed=0,
+        repeat_data=True)
+    tt = HeteroTrainer(
+        tcfg, [GroupDef("accel", DeviceKind.ACCEL, device="cpu",
+                        fixed_chunk=8, async_depth=2)],
+        seq_len=SEQ, global_batch=16, oc=topt.OptConfig(**oc), seed=0,
+        repeat_data=True,
+        params=params_from_jax(tcfg, _np_tree(jt.params), "cpu"))
+    batch = tt.data.batch(0, 16)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    aux_j_fn = jax.jit(lambda p: jstep.loss_fn(jcfg, p, jbatch)[1]
+                       ["aux_loss"])
+    losses = []
+    for step in range(6):
+        aux_j = float(aux_j_fn(jt.params))
+        with torch.no_grad():
+            aux_t = tstep.loss_fn(tcfg, tt.params, tbatch)[1]["aux_loss"]
+        np.testing.assert_allclose(aux_t.item(), aux_j, rtol=tol,
+                                   err_msg=f"aux loss, step {step}")
+        rj, rt = jt.train_step(), tt.train_step()
+        assert rt.examples == rj.examples == 16
+        np.testing.assert_allclose(rt.loss, rj.loss, rtol=tol,
+                                   err_msg=f"loss, step {step}")
+        losses.append((rj.loss, rt.loss))
+    assert losses[-1][0] < losses[0][0] and losses[-1][1] < losses[0][1]
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_launcher_trains_each_family_on_the_cpu(arch):
     """``--device cpu --reduced --steps 3`` (bf16, the configs' dtype):

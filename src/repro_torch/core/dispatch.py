@@ -22,7 +22,8 @@ import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Deque, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -106,6 +107,126 @@ class CallableExecutor(ChunkExecutor):
         return [rec]
 
 
+class Phase(NamedTuple):
+    """One timed phase of a chunk: its host start (monotonic), its host
+    and device seconds, the steps counted in it, and the part of the
+    chunk it belongs to (``inputs``, ``step``, ``fetch``, or ``wait``:
+    the host or the stream waiting for work queued ahead of it)."""
+    name: str
+    start: float
+    host_s: float
+    device_s: float
+    steps: int
+    part: str
+
+
+def part_device_s(rec: ChunkRecord, *parts: str) -> Optional[float]:
+    """Device seconds of ``rec``'s timed phases (``rec.meta["phases"]``)
+    in ``parts``, or of all but the waits without any; None where its
+    executor timed none."""
+    phases = rec.meta.get("phases")
+    if not phases:
+        return None
+    return sum(p.device_s for p in phases
+               if (p.part in parts if parts else p.part != "wait"))
+
+
+def phase_fractions(records, total_time: float) \
+        -> Dict[str, Dict[str, float]]:
+    """The offload terms that the timed phases measure soundly, as
+    fractions of ``total_time``, per group and ``"all"`` over the records
+    that have phases: ``O_dh_dev``, the fetch's own device time, and
+    ``kernel_dev_frac``, the step's. ``OverheadLedger`` keeps the Tg
+    stamps' O_dh and ``kernel_frac``, which admission reads; at async
+    depth ≥ 2 Tg4 → Tg5 holds the next chunk's run."""
+    t = max(total_time, 1e-12)
+    out: Dict[str, Dict[str, float]] = {}
+    for rec in records:
+        fetch = part_device_s(rec, "fetch")
+        if fetch is None:
+            continue
+        step = part_device_s(rec, "step")
+        for key in (rec.token.group, "all"):
+            f = out.setdefault(key, {"O_dh_dev": 0.0, "kernel_dev_frac": 0.0})
+            f["O_dh_dev"] += fetch / t
+            f["kernel_dev_frac"] += step / t
+    return out
+
+
+class PhaseMarks:
+    """Phase boundaries of work on one stream, resolved to floats once the
+    work has run.
+
+    ``mark(name)`` ends the open phase and opens ``name``: a host stamp
+    and, on CUDA, a timing event recorded on ``stream`` (never inside a
+    graph capture). ``close()`` ends the last phase and returns its event.
+    Once that event has passed, ``resolve()`` gives each phase as a
+    ``Phase``: its device seconds are the elapsed time between its event
+    and the next, so consecutive phases split the stream's own timeline,
+    idle stretches inside a phase included. On the CPU (``stream`` None)
+    the work runs as the host calls it, and the host stamps stand in.
+    """
+
+    def __init__(self, stream: Optional[torch.cuda.Stream] = None):
+        self.stream = stream
+        # (name, part, steps, host stamp, event or None)
+        self._marks: List[Tuple[str, str, int, float, Any]] = []
+
+    def _event(self):
+        if self.stream is None:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(self.stream)
+        return event
+
+    def mark(self, name: str, part: str = "step", steps: int = 0,
+             sync: bool = False) -> None:
+        """Open phase ``name`` of ``part``, counting ``steps``; with
+        ``sync`` the host then waits for the work queued ahead of it on
+        the stream (the phase's host seconds are that wait)."""
+        event = self._event()
+        self._marks.append((name, part, steps, clock(), event))
+        if sync and event is not None:
+            event.synchronize()
+
+    def close(self):
+        """End the open phase; its closing event (None on the CPU or with
+        no phase open)."""
+        if not self._marks:
+            return None
+        event = self._event()
+        self._marks.append(("", "", 0, clock(), event))
+        return event
+
+    def resolve(self) -> List[Phase]:
+        """The closed phases as floats; the events are dropped."""
+        marks, self._marks = self._marks, []
+        out = []
+        for (name, part, steps, t0, e0), (_, _, _, t1, e1) in zip(
+                marks, marks[1:]):
+            host = t1 - t0
+            dev = host if e0 is None else e0.elapsed_time(e1) * 1e-3
+            out.append(Phase(name, t0, host, dev, steps, part))
+        return out
+
+
+def phase_totals(phases, into: Optional[Dict[str, Dict[str, float]]] = None) \
+        -> Dict[str, Dict[str, float]]:
+    """Sum ``Phase``s by name: ``{name: {"device_s", "host_s", "count",
+    "steps"}}``, added to ``into`` where given."""
+    out = {} if into is None else into
+    for p in phases:
+        t = out.get(p.name)
+        if t is None:
+            t = out[p.name] = {"device_s": 0.0, "host_s": 0.0, "count": 0,
+                               "steps": 0}
+        t["device_s"] += p.device_s
+        t["host_s"] += p.host_s
+        t["count"] += 1
+        t["steps"] += p.steps
+    return out
+
+
 class TorchChunkExecutor(ChunkExecutor):
     """Runs a step on one torch device with measured offload phases.
 
@@ -122,6 +243,15 @@ class TorchChunkExecutor(ChunkExecutor):
     ``.item()`` / ``.cpu()`` on a device tensor), or ``async_depth ≥ 2``
     pipelines nothing. On the CPU the outputs are ready when the step
     returns: there is no event to probe, so poll mode degrades to block.
+
+    With ``time_phases``, ``make_inputs``, ``step`` and ``fetch`` mark the
+    phases of the chunk in hand (``mark``, ``settle``) on a
+    ``PhaseMarks`` of the executor's stream; the step's last phase ends
+    at the readiness event. A chunk's marks are resolved at its
+    completion, after its readiness event, into ``rec.meta["phases"]``
+    (a list of ``Phase``, in order).
+    Without it ``mark`` and ``settle`` return at once: no clock read, no
+    event.
     """
 
     #: bounded-backoff schedule for the readiness poll: a few free yields
@@ -134,7 +264,8 @@ class TorchChunkExecutor(ChunkExecutor):
                  fetch: Optional[Callable[[Any], Any]] = None,
                  device=None, async_depth: int = 1,
                  priority_boost: bool = False,
-                 completion_mode: str = "poll", name: str = ""):
+                 completion_mode: str = "poll", name: str = "",
+                 time_phases: bool = False):
         if completion_mode not in ("poll", "block"):
             raise ValueError(f"completion_mode must be 'poll' or 'block', "
                              f"got {completion_mode!r}")
@@ -148,12 +279,18 @@ class TorchChunkExecutor(ChunkExecutor):
         self.async_depth = max(1, async_depth)
         self.priority_boost = priority_boost
         self.completion_mode = completion_mode
+        self.time_phases = time_phases
         self.boosted = False
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
-        # (record, outputs, readiness event or None, pinned host inputs)
-        self._inflight: Deque[Tuple[ChunkRecord, Any, Any, Any]] = \
+        # (record, outputs, readiness event or None, pinned host inputs,
+        # the step's phase marks or None)
+        self._inflight: Deque[Tuple[ChunkRecord, Any, Any, Any, Any]] = \
             collections.deque()
+        # the phase marks of the chunk in hand, and the part of it that
+        # is running (None while no chunk is in hand, or untimed)
+        self._marks: Optional[PhaseMarks] = None
+        self._part = ""
         self._lost_chunks: List[Chunk] = []       # popped, then failed
         self._pending_done: List[ChunkRecord] = []  # done, not yet returned
         # whether dispatched chunks carry a readiness event — decided on
@@ -171,6 +308,28 @@ class TorchChunkExecutor(ChunkExecutor):
         """The executor's CUDA stream (None on the CPU): every chunk's
         copies and step run on it."""
         return self._stream
+
+    # -- phases --------------------------------------------------------
+    def mark(self, name: str, steps: int = 0, wait: bool = False) -> None:
+        """Open phase ``name`` of the chunk in hand (ending the one
+        before), counting ``steps``; called from ``make_inputs``, ``step``
+        or ``fetch``, outside any graph capture. With ``wait`` the phase
+        is a wait: the stream waits in it for other work (its device
+        seconds are the stall, part of no step)."""
+        if self._marks is not None:
+            self._marks.mark(name, "wait" if wait else self._part, steps)
+
+    def settle(self, name: str) -> None:
+        """Open phase ``name`` and wait there for the work queued ahead
+        on the executor's stream: the host's wait is the phase's host
+        seconds, and no part of the step's or the fetch's device time
+        (``fetch`` calls it before its copy, which the stream would run
+        after the next chunk anyway). On the CPU nothing is queued."""
+        if self._marks is not None:
+            self._marks.mark(name, "wait", sync=True)
+
+    def _in_hand(self, marks: Optional[PhaseMarks], part: str) -> None:
+        self._marks, self._part = marks, part
 
     def _stream_ctx(self):
         return torch.cuda.stream(self._stream) \
@@ -219,11 +378,13 @@ class TorchChunkExecutor(ChunkExecutor):
             delay = min(max(delay * 2.0, self.POLL_MIN_S), self.POLL_MAX_S)
 
     def _complete_oldest(self, known_ready: bool = False) -> ChunkRecord:
-        rec, outs, event, _pinned = self._inflight.popleft()
+        rec, outs, event, _pinned, marks = self._inflight.popleft()
+        fetch_marks = None if marks is None else PhaseMarks(self._stream)
         try:
             if not known_ready:     # readiness not just probed by caller
                 self._wait_ready(event)
             rec.tg4 = clock()
+            self._in_hand(fetch_marks, "fetch")
             with self._stream_ctx():
                 res = self.fetch(outs)
             rec.tg5 = clock()
@@ -232,6 +393,15 @@ class TorchChunkExecutor(ChunkExecutor):
             # hands — remember it so abort() can hand it back for requeue
             self._lost_chunks.append(rec.token.chunk)
             raise
+        finally:
+            self._in_hand(None, "")
+        if marks is not None:
+            # the step's events have passed (readiness); the fetch's close
+            # right after its copy, which the host has waited for
+            end = fetch_marks.close()
+            if end is not None:
+                end.synchronize()
+            rec.meta["phases"] = marks.resolve() + fetch_marks.resolve()
         # Tc3 (host resumed after completion) is stamped here, per record:
         # with async_depth ≥ 2 several records drain in one call, and a
         # single batch-level stamp would inflate O_td for all but the last
@@ -253,22 +423,29 @@ class TorchChunkExecutor(ChunkExecutor):
                     done.append(self._complete_oldest(known_ready=True))
             while len(self._inflight) >= self.async_depth:
                 done.append(self._complete_oldest())
-            host_inputs = self.make_inputs(token)
-            with self._stream_ctx():
-                rec.tg1 = clock()
-                dev_inputs, pinned = self._to_device(host_inputs)
-                rec.tg2 = clock()
-                outs = self.step(*dev_inputs) \
-                    if isinstance(dev_inputs, tuple) \
-                    else self.step(dev_inputs)
-                rec.tg3 = clock()               # enqueue returned (async)
-                event = None
-                if self._stream is not None:
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
+            marks = PhaseMarks(self._stream) if self.time_phases else None
+            self._in_hand(marks, "inputs")
+            try:
+                host_inputs = self.make_inputs(token)
+                with self._stream_ctx():
+                    rec.tg1 = clock()
+                    dev_inputs, pinned = self._to_device(host_inputs)
+                    rec.tg2 = clock()
+                    self._part = "step"
+                    outs = self.step(*dev_inputs) \
+                        if isinstance(dev_inputs, tuple) \
+                        else self.step(dev_inputs)
+                    rec.tg3 = clock()           # enqueue returned (async)
+            finally:
+                self._in_hand(None, "")
+            # readiness: the step's closing mark where it has phases
+            event = marks.close() if marks is not None else None
+            if event is None and self._stream is not None:
+                event = torch.cuda.Event()
+                event.record(self._stream)
             if self._poll_ok is None:
                 self._poll_ok = event is not None
-            self._inflight.append((rec, outs, event, pinned))
+            self._inflight.append((rec, outs, event, pinned, marks))
             if self.async_depth == 1:
                 done.append(self._complete_oldest())
         except BaseException:

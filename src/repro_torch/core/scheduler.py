@@ -45,7 +45,8 @@ from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple, Union
 
 from repro_torch import telemetry as telemetry_mod
-from repro_torch.core.dispatch import ChunkExecutor, ChunkFailure, clock
+from repro_torch.core.dispatch import (ChunkExecutor, ChunkFailure, clock,
+                                      part_device_s, phase_fractions)
 from repro_torch.core.overheads import OverheadLedger
 from repro_torch.core.partitioner import HeterogeneousPartitioner
 from repro_torch.core.throughput import ThroughputTracker
@@ -693,7 +694,10 @@ class DynamicScheduler:
                                               else max(rec.tc3 - rec.tc2,
                                                        0.0))
                 host_h.observe(host)
-                dev_h.observe(rec.device_time)
+                # the timed phases' device seconds where the executor has
+                # them: Tg5 − Tg1 holds the next chunk's run at depth ≥ 2
+                dev = part_device_s(rec)
+                dev_h.observe(rec.device_time if dev is None else dev)
                 tracer.chunk(rec, epoch_idx)
             chunks.add(len(recs))
             items.add(n)
@@ -784,6 +788,9 @@ class DynamicScheduler:
         overheads = {g: h.ledger.report(total, g)
                      for g in h.ledger.groups()}
         overheads["all"] = h.ledger.report(total)
+        # beside the Tg stamps' terms: those the timed phases measure
+        for g, f in phase_fractions(h._records, total).items():
+            overheads.setdefault(g, {}).update(f)
         h._result = ScheduleResult(
             total_time=total,
             iterations=sum(per_items.values()),

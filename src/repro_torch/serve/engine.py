@@ -41,6 +41,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.core import (ChunkFailure, DeviceKind, DynamicScheduler,
                               GroupSpec, OverheadLedger, ThroughputTracker,
                               TorchChunkExecutor)
+from repro_torch.core.dispatch import phase_totals
 from repro_torch.core.energy import EnergyModel
 from repro_torch.models import model as M
 from repro_torch.queue import (AdmissionController, Job, JobService,
@@ -95,6 +96,11 @@ class ServeReport:
     throughput: Dict[str, float]
     #: request index -> its generated tokens (decode_tokens,)
     tokens_out: Dict[int, np.ndarray] = field(default_factory=dict)
+    #: the accelerator groups' chunk phases, summed by name (``serve.inputs``,
+    #: ``serve.prefill``, ``serve.decode`` with its steps, ``serve.gather``,
+    #: ``serve.fetch_wait``, ``serve.fetch``): ``{name: {"device_s",
+    #: "host_s", "count", "steps"}}``; empty with telemetry off
+    phases: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
 
 @dataclass
@@ -239,6 +245,7 @@ class HeteroServeEngine:
         params = self._params[device]
 
         def make_inputs(token):
+            ex.mark("serve.inputs")         # this and the copy to the device
             c = token.chunk
             pad = bucket(c.size)
             toks = np.stack([self._prompt(i) for i in range(c.begin, c.end)])
@@ -271,23 +278,30 @@ class HeteroServeEngine:
             # greedy decoding stays on the device: no token comes back to
             # the host before fetch(). Each argmax is a new tensor, read
             # from the logits before the next replay overwrites them.
+            ex.mark("serve.prefill")
             logits, cache = prefill_fn(params, batch["tokens"],
                                        batch.get("prefix_emb"))
             tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
             toks = [tok]
+            ex.mark("serve.decode", steps=self.decode_tokens - 1)
             for _ in range(self.decode_tokens - 1):
                 logits, cache = decode_fn(params, cache, tok)
                 tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
                 toks.append(tok)
+            ex.mark("serve.gather")
             return torch.cat(toks, dim=1)
 
         def fetch(outs):
+            # the copy runs on the stream after the next chunk's step
+            ex.settle("serve.fetch_wait")
+            ex.mark("serve.fetch")
             return {"tokens_out": outs.cpu().numpy()}
 
         ex = TorchChunkExecutor(step, make_inputs, fetch, device=device,
                                 async_depth=g.async_depth,
                                 priority_boost=g.priority_boost,
-                                name=key or g.name)
+                                name=key or g.name,
+                                time_phases=self.telemetry is not None)
         return ex
 
     def _executor_for(self, g: GroupDef,
@@ -365,7 +379,10 @@ class HeteroServeEngine:
             per_group_items=res.per_group_items,
             overheads=res.overheads,
             throughput=res.throughput,
-            tokens_out=tokens_out)
+            tokens_out=tokens_out,
+            phases=phase_totals(p for rec in res.records
+                                if rec.token.is_accel
+                                for p in rec.meta.get("phases", ())))
 
     # ------------------------------------------------------------------
     # queued-submission path: requests arrive as prioritized Jobs, pass

@@ -22,7 +22,15 @@ Export is Chrome trace-event JSON — ``chrome_trace()`` returns the
 ``{"traceEvents": [...]}`` object that chrome://tracing and Perfetto load
 directly. Host spans for one group live on one track (tid), device-phase
 spans on a sibling ``<group>/dev`` track, so pipelined executors
-(async_depth ≥ 2) cannot break host-span stack nesting.
+(async_depth ≥ 2) cannot break host-span stack nesting. A chunk's timed
+phases (``rec.meta["phases"]``) are spans on a ``<group>/phases`` track,
+at their host stamps, each with its device milliseconds.
+
+Timestamps are ``time.monotonic`` microseconds. The tracer records once
+how far that clock lies from the Unix epoch in nanoseconds, the clock of
+``torch.profiler``'s events, and exports it as ``clock_offset_ns`` in
+``otherData``: ``ts * 1e3 + clock_offset_ns`` places a span on the
+profiler's timeline.
 """
 from __future__ import annotations
 
@@ -38,6 +46,14 @@ clock = time.monotonic
 #: is deterministic for a given schedule and rate.
 _HASH_MUL = 0x9E3779B1
 _HASH_DEN = float(2 ** 32)
+
+
+def epoch_offset_ns() -> int:
+    """Unix-epoch nanoseconds less ``time.monotonic`` nanoseconds, now:
+    the epoch clock read between two monotonic reads."""
+    m0 = time.monotonic_ns()
+    wall = time.time_ns()
+    return wall - (m0 + time.monotonic_ns()) // 2
 
 _CHUNK = 0        # chunk lifecycle (from a ChunkRecord)
 _SPAN = 1         # generic duration span (service batches, exports)
@@ -57,6 +73,7 @@ class SpanTracer:
         self._epoch_tags: Dict[int, Dict[str, Any]] = {}
         self._max_epoch_tags = max_epoch_tags
         self._tag_lock = threading.Lock()
+        self.clock_offset_ns = epoch_offset_ns()
 
     # -- sampling -------------------------------------------------------
     def sampled(self, seq: int) -> bool:
@@ -93,7 +110,8 @@ class SpanTracer:
         self._events.append((
             _CHUNK, rec.token.group, epoch, seq, rec.token.chunk.size,
             rec.tc1, rec.tc2, rec.tc3,
-            rec.tg1, rec.tg2, rec.tg3, rec.tg4, rec.tg5))
+            rec.tg1, rec.tg2, rec.tg3, rec.tg4, rec.tg5,
+            tuple(rec.meta.get("phases", ()))))
 
     def span(self, name: str, tid: str, start: float, end: float,
              **args) -> None:
@@ -119,7 +137,7 @@ class SpanTracer:
     # -- export ---------------------------------------------------------
     def _chunk_events(self, ev: tuple, tids, out: List[dict]) -> None:
         (_, group, epoch, seq, size,
-         tc1, tc2, tc3, tg1, tg2, tg3, tg4, tg5) = ev
+         tc1, tc2, tc3, tg1, tg2, tg3, tg4, tg5, phases) = ev
         args: Dict[str, Any] = {"group": group, "seq": seq, "items": size}
         if epoch is not None:
             args["epoch"] = epoch
@@ -143,6 +161,15 @@ class SpanTracer:
                             "ts": a * us, "dur": max(b - a, 0.0) * us,
                             "pid": 0, "tid": dev_tid,
                             "args": {"seq": seq}})
+        if phases:
+            phase_tid = tids(f"{group}/phases")
+            for p in phases:
+                args = {"seq": seq, "device_ms": p.device_s * 1e3}
+                if p.steps:
+                    args["steps"] = p.steps
+                out.append({"name": p.name, "cat": "phase", "ph": "X",
+                            "ts": p.start * us, "dur": p.host_s * us,
+                            "pid": 0, "tid": phase_tid, "args": args})
 
     def chrome_events(self) -> List[dict]:
         """Format the retained events as Chrome trace events (metadata
@@ -185,7 +212,8 @@ class SpanTracer:
                 "displayTimeUnit": "ms",
                 "otherData": {"emitted": self.emitted,
                               "dropped": self.dropped,
-                              "sample_rate": self.sample_rate}}
+                              "sample_rate": self.sample_rate,
+                              "clock_offset_ns": self.clock_offset_ns}}
 
     def write_chrome_trace(self, path: str) -> int:
         """Write the trace JSON; returns the number of trace events."""

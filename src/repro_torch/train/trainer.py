@@ -35,6 +35,16 @@ executor's other buckets' graphs are dropped (``graph_counts.dropped``)
 and the capture is tried once more. A CPU group calls the step eagerly.
 The executors are built once per group, so their graphs last across
 steps.
+
+With telemetry on (``telemetry=None``, the default instance, or one
+passed), a step's phases are timed on the device (``core.dispatch.
+PhaseMarks``): each chunk's inputs, gradient step and fetch on its
+executor's stream, and the combine, the update and the refresh of the
+copies on the stream they run on. ``StepReport.phases`` sums them. A step
+returns with its update queued: its own three phases join its report,
+and reach the tracer as spans, when the next step's chunks have run
+(they wait for the update), or at ``resolve_phases()``.
+``telemetry=OFF`` times nothing.
 """
 from __future__ import annotations
 
@@ -45,10 +55,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry as telemetry_mod
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import (ChunkFailure, ChunkRecord, DeviceKind,
                               DynamicScheduler, GroupSpec, TorchChunkExecutor)
 from repro_torch.core.chunk_search import search_chunk
+from repro_torch.core.dispatch import PhaseMarks, phase_totals
 from repro_torch.data.pipeline import for_model
 from repro_torch.models import model as M
 from repro_torch.serve.engine import resolve_device
@@ -89,6 +101,15 @@ class StepReport:
     overheads: Dict[str, Dict[str, float]]
     throughput: Dict[str, float]
     failed_groups: List[str] = field(default_factory=list)
+    #: the step's phases summed by name, as ``ServeReport.phases``: the
+    #: accelerator groups' chunks' ``train.inputs``, ``train.update_wait``
+    #: (the chunk's stream waiting for the last update), ``train.grad``,
+    #: ``train.fetch_wait`` and ``train.fetch``, and the trainer's
+    #: ``train.combine``, ``train.update`` (the global norm, the clip and
+    #: AdamW) and ``train.refresh`` (the copies of the weights and the mark
+    #: that orders later chunks behind them), which join it once they have
+    #: run (``HeteroTrainer.resolve_phases``); empty with telemetry off
+    phases: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
 
 class HeteroTrainer:
@@ -96,7 +117,7 @@ class HeteroTrainer:
                  seq_len: int = 128, global_batch: int = 64,
                  oc: Optional[OptConfig] = None, seed: int = 0,
                  alpha: float = 0.5, repeat_data: bool = False,
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None, telemetry=None):
         if not groups:
             raise ValueError("no device groups")
         self.devices = {g.name: resolve_device(g.device) for g in groups}
@@ -112,6 +133,7 @@ class HeteroTrainer:
         self.global_batch = global_batch
         self.oc = oc or OptConfig()
         self.alpha = alpha
+        self.telemetry = telemetry_mod.resolve(telemetry)
         self.data = for_model(cfg, seq_len - cfg.prefix_len, seed)
         accel = [g for g in groups if g.kind == DeviceKind.ACCEL]
         self.device = self.devices[(accel or groups)[0].name]
@@ -125,6 +147,10 @@ class HeteroTrainer:
                         if d != self.device}
         self._written: Dict[torch.device, torch.cuda.Event] = {}
         self._mark_written()
+        # the last step's report, its own phase marks and their closing
+        # event, until those have run (resolve_phases)
+        self._unresolved: Optional[Tuple[StepReport, PhaseMarks, object]] \
+            = None
         self.step_idx = 0
         self.history: List[StepReport] = []
         # one executor per group, for the trainer's life; the chunks each
@@ -226,6 +252,7 @@ class HeteroTrainer:
         slowdown = g.slowdown
 
         def make_inputs(token):
+            ex.mark("train.inputs")         # this and the copy to the device
             # chunk bounds are absolute sample indices: any group can
             # materialize any range, and re-executed chunks are identical
             c = token.chunk
@@ -244,17 +271,23 @@ class HeteroTrainer:
             # another stream than this chunk's. The wait stays outside the
             # graph, before the batch is copied in.
             if device in self._written:
+                ex.mark("train.update_wait", wait=True)
                 torch.cuda.current_stream(device).wait_event(
                     self._written[device])
+            ex.mark("train.grad")
             return self._grad_fn(ex, b)(self._weights(device), batch)
 
         def fetch(outs):
             grads, loss_n, n = outs
+            # the copies run on the stream after the next chunk's step
+            ex.settle("train.fetch_wait")
+            ex.mark("train.fetch")
             return {"grads": grads, "loss_n": float(loss_n), "n": float(n)}
 
         ex = TorchChunkExecutor(step, make_inputs, fetch, device=device,
                                 async_depth=g.async_depth,
-                                priority_boost=g.priority_boost, name=g.name)
+                                priority_boost=g.priority_boost, name=g.name,
+                                time_phases=self.telemetry is not None)
         return ex
 
     # ------------------------------------------------------------------
@@ -297,12 +330,22 @@ class HeteroTrainer:
                 init_throughput=1.0)
             execs[g.name] = self._executor_for(g)
         self._chunks_run = {}
-        sched = DynamicScheduler(specs, execs, alpha=self.alpha)
+        sched = DynamicScheduler(
+            specs, execs, alpha=self.alpha,
+            telemetry=telemetry_mod.OFF if self.telemetry is None
+            else self.telemetry)
         self._space_offset = 0 if self.repeat_data \
             else self.step_idx * self.global_batch
         res = sched.run(self._space_offset,
                         self._space_offset + self.global_batch)
+        # the chunks waited for the last update: its marks have run
+        self.resolve_phases()
 
+        marks = None
+        if self.telemetry is not None:
+            marks = PhaseMarks(torch.cuda.current_stream(self.device)
+                               if self.device.type == "cuda" else None)
+            marks.mark("train.combine")
         # example-weighted gradient combine across groups, in fp32 on the
         # parameters' device, one leaf at a time; each chunk's leaf is
         # dropped once added. A CUDA leaf was made on its chunk's stream
@@ -327,9 +370,13 @@ class HeteroTrainer:
             total.append(acc.div_(total_n))
         del chunk_leaves
         total_g = tree_unflatten(self.params, total)
+        if marks is not None:
+            marks.mark("train.update")
         self.params, self.opt, _ = adamw_update(
             self.oc, self.params, total_g, self.opt)
         del total_g, total
+        if marks is not None:
+            marks.mark("train.refresh")
         self._refresh_copies()
         self._mark_written()
         self.step_idx += 1
@@ -339,8 +386,31 @@ class HeteroTrainer:
             per_group_items=res.per_group_items,
             overheads=res.overheads, throughput=res.throughput,
             failed_groups=res.failed_groups)
+        if marks is not None:
+            phase_totals((p for rec in res.records if rec.token.is_accel
+                          for p in rec.meta.get("phases", ())), rep.phases)
+            self._unresolved = (rep, marks, marks.close())
         self.history.append(rep)
         return rep
 
+    def resolve_phases(self) -> None:
+        """Add the last step's own phases (combine, update, refresh) to
+        its report and trace them as spans, once they have run on the
+        device (waiting for them where they have not)."""
+        if self._unresolved is None:
+            return
+        rep, marks, end = self._unresolved
+        self._unresolved = None
+        if end is not None:
+            end.synchronize()
+        own = marks.resolve()
+        for p in own:
+            self.telemetry.tracer.span(p.name, "trainer", p.start,
+                                       p.start + p.host_s, step=rep.step,
+                                       device_ms=p.device_s * 1e3)
+        phase_totals(own, rep.phases)
+
     def train(self, steps: int) -> List[StepReport]:
-        return [self.train_step() for _ in range(steps)]
+        reps = [self.train_step() for _ in range(steps)]
+        self.resolve_phases()
+        return reps

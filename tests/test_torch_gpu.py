@@ -637,6 +637,116 @@ def test_bulk_chunk_of_64_launches_exactly_once_a_layer():
     assert not any(int(t.abs().sum()) for t in FD._counters.values())
 
 
+@pytest.mark.gpu
+def test_device_phases_cover_a_graphed_serve_and_a_graphed_step():
+    """Reduced stablelm-1.6b in bf16 on cuda:0 through the graphs: a
+    warm served call and a warm training step. Each phase's device
+    seconds are positive (the host's waits, no work of their own, at
+    least 0), and the phases' device seconds sum to at least 90% of the
+    call's synchronised wall time and to no more than it."""
+    import time
+    from repro_torch import telemetry
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.core import DeviceKind
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    from repro_torch.train.trainer import GroupDef as TrainGroup
+    from repro_torch.train.trainer import HeteroTrainer
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced_config("stablelm-1.6b").replace(dtype="bfloat16")
+
+    def timed(call):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rep = call()
+        torch.cuda.synchronize(dev)
+        return rep, time.perf_counter() - t0
+
+    def check(phases, wall):
+        assert phases
+        for name, t in phases.items():
+            if name.endswith("_wait"):
+                assert t["device_s"] >= 0.0, name
+            else:
+                assert t["device_s"] > 0.0, name
+        total = sum(t["device_s"] for t in phases.values())
+        assert 0.9 * wall <= total <= wall, (total, wall)
+
+    eng = HeteroServeEngine(
+        cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev,
+                       fixed_chunk=16, async_depth=2)],
+        prompt_len=64, decode_tokens=64, telemetry=telemetry.Telemetry())
+    eng.serve(128)                          # captures the graphs
+    rep, wall = timed(lambda: eng.serve(128))
+    assert rep.phases["serve.decode"]["steps"] == 8 * 63
+    check(rep.phases, wall)
+
+    tr = HeteroTrainer(
+        cfg, [TrainGroup("accel", DeviceKind.ACCEL, device=dev,
+                         fixed_chunk=8, async_depth=2)],
+        seq_len=128, global_batch=32, telemetry=telemetry.Telemetry())
+    tr.train_step()                         # captures the graph
+
+    def step():
+        rep = tr.train_step()
+        tr.resolve_phases()
+        return rep
+    rep, wall = timed(step)
+    assert rep.phases["train.grad"]["count"] == 4
+    assert rep.phases["train.update"]["count"] == 1
+    assert tr.graph_counts.snapshot()["replays"] >= 4
+    check(rep.phases, wall)
+
+
+@pytest.mark.gpu
+def test_a_step_after_an_unsynchronised_one_leaves_its_update_out_of_grad():
+    """Two training steps with no synchronise between them: the second's
+    first chunk waits on its stream for the first's update, which is
+    still queued (here lengthened by a 50 ms sleep kernel after it). The
+    wait is ``train.update_wait``; ``train.grad`` holds the chunks' own
+    work alone, as in a step that waits for nothing."""
+    from repro_torch import telemetry
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.core import DeviceKind
+    from repro_torch.train.trainer import GroupDef, HeteroTrainer
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced_config("stablelm-1.6b").replace(dtype="bfloat16")
+    tr = HeteroTrainer(
+        cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev,
+                       fixed_chunk=8, async_depth=2)],
+        seq_len=128, global_batch=32, telemetry=telemetry.Telemetry())
+    tr.train(2)                             # captures the graph
+    torch.cuda.synchronize(dev)
+    calm = tr.train_step()
+    tr.resolve_phases()
+    torch.cuda.synchronize(dev)
+
+    # 50 ms on the trainer's stream after the update, before the mark
+    # the next step's chunks wait for
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    first = tr.train_step()
+    start.record()
+    torch.cuda._sleep(int(50e-3 * 1.5e9))
+    end.record()
+    tr._mark_written()
+    second = tr.train_step()
+    tr.resolve_phases()
+    torch.cuda.synchronize(dev)
+    slept = start.elapsed_time(end) * 1e-3
+    assert slept > 20e-3
+    assert first.phases["train.update"]["count"] == 1
+    wait = second.phases["train.update_wait"]
+    assert wait["count"] == 4
+    assert wait["device_s"] >= 0.5 * slept
+    grad, calm_grad = (r.phases["train.grad"]["device_s"]
+                       for r in (second, calm))
+    assert grad < calm_grad + 0.25 * slept, (grad, calm_grad, slept)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):

@@ -81,6 +81,10 @@ DIFFER = {
         "there are none (the reference drops them, ROADMAP C9), and oracle "
         "sweeps k / round(1/step) so that its last split is exactly 1.0 "
         "(the reference's f += step ends below it, C10)",
+    "telemetry/spans.py":
+        "chunk spans carry the record's timed phases (meta[\"phases\"]), "
+        "and the trace exports "
+        "its offset to the profiler's Unix-epoch clock (clock_offset_ns)",
 }
 
 

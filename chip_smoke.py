@@ -102,11 +102,15 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       ``aten._scaled_dot_product_flash_attention`` (output and L, the same
       function; timed only, on GQA's kv heads repeated);
    b. the attention backward: ``FlashAttentionFn`` forward and backward
-      in bf16 at stablelm's training shape (b 8, S 512, H 32, D 64) and
-      at gqa8_d128, dq/dk/dv against autograd through the plain version in
-      fp32, timed (on the device alone, in a CUDA graph, and back to
-      back), and beside it ``F.scaled_dot_product_attention`` forward and
-      backward (timed only);
+      in bf16 at stablelm's training shape (b 8, S 512, H 32, D 64), at
+      gqa8_d128 and at d96 (S 656), dq/dk/dv against autograd through the
+      plain version in fp32, timed (on the device alone, in a CUDA graph,
+      and back to back), and beside it ``F.scaled_dot_product_attention``
+      forward and backward (timed only); then the backward kernels alone
+      on the forward's o and L: against their plain version, bit-equal on
+      a second call, timed beside their bound (seven products over the
+      causal triangle; q, k, v, o, do, L read, dq, dk, dv written), their
+      plain version and SDPA's backward alone (timed only);
    c. stablelm-1.6b at full width cut to 2 layers, its block matrices at
       fan-in scale: one ``grad_step`` through the kernels in bf16 against
       the same step with the plain versions in their place, in bf16 and
@@ -118,8 +122,9 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       seeded with 0), group ``accel:chunk=8:async=2`` on cuda:0, seq_len
       512, global batch 32 of the same examples, 6 AdamW steps: the loss
       falls, every step covers 32 examples, flash-attention launches
-      exactly 2 x 24 a chunk (the forward and the recompute) and no other
-      kernel launches; time per step, tokens/s and peak memory, with one
+      exactly 2 x 24 a chunk (the forward and the recompute), the
+      backward's two kernels 2 x 24 (dq, then dk and dv, once a layer)
+      and no other kernel launches; time per step, tokens/s and peak memory, with one
       synchronise, at the end of the window. Every training phase on the
       card runs the trainer's CUDA graphs (``_grad_fn``: one graph of the
       chunk's forward and backward captured per executor and batch
@@ -144,10 +149,11 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       group and one tail block) and xlstm-350m cut to its first pair, each
       with its launches exact, and whether a second run repeats the bits;
    c. 13d's main path (random weights from a torch.Generator seeded with
-      0) on full-width granite-moe-1b-a400m (24 layers; K1 2 x 24 a
-      chunk; then one full-model step's recompute routing against its
-      forward), zamba2-1.2b (38 layers; a chunk launches K3 2 x 36
-      + 2, the tail blocks not being recomputed, and K1 2 x 6) and
+      0) on full-width granite-moe-1b-a400m (24 layers; K1 and the
+      backward's kernels 2 x 24 a chunk each; then one full-model step's
+      recompute routing against its forward), zamba2-1.2b (38 layers; a
+      chunk launches K3 2 x 36 + 2, the tail blocks not being recomputed,
+      and K1 and the backward's kernels 2 x 6 each) and
       xlstm-350m (12 pairs, 3 steps of 16 examples of 256 tokens; no
       kernel launch);
 15. the paper's core, run after phase 9 on phase 4's weights:
@@ -199,7 +205,8 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    for stablelm-1.6b, granite-moe-1b-a400m, zamba2-1.2b and xlstm-350m:
    from the same weights, 3 AdamW steps with every chunk's step eager,
    then 3 through the graphs; every step's loss and the weights and AdamW
-   state after the last bit-equal, launches exact in both runs and a
+   state after the last bit-equal, launches exact in both runs (the
+   backward's kernels among them: 2 a layer, so 48 a stablelm chunk) and a
    replay's equal to a chunk's, then one chunk's gradients, loss * n and
    n replayed against the eager step's on the same batch, bit-equal; s a
    step, trained tok/s, peak memory, the capture's seconds and pool bytes
@@ -356,6 +363,7 @@ def _kernel_name(mangled: str) -> str:
 def phase_occupancy(dev):
     """Resident blocks per SM of every instantiation of the kernels."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels._checks import HEAD_DIMS
@@ -366,6 +374,13 @@ def phase_occupancy(dev):
         log(f"flash_attention occupancy D={d}: {fa.blocks} resident blocks "
             f"per SM, {fa.smem_bytes} bytes of dynamic shared memory per "
             f"block; {fa.kernel}, {fa.stages} stages copied by {fa.copy}")
+    for d in (64, 96, 128):     # 16 and 32 run padded to 64
+        fb = FB.occupancy(d, dev)
+        occ[f"flash_attention_bwd D={d}"] = min(fb.dq_blocks, fb.dkdv_blocks)
+        log(f"flash_attention_bwd occupancy D={d}: dq {fb.dq_blocks}, dkdv "
+            f"{fb.dkdv_blocks} resident blocks per SM, {fb.dq_smem} / "
+            f"{fb.dkdv_smem} bytes of dynamic shared memory per block; "
+            f"{fb.stages} stages copied by tma")
     for d in HEAD_DIMS:
         for group in FD.GROUPS:
             blocks, smem = FD.occupancy(d, group, dev)
@@ -702,17 +717,19 @@ class plain_kernels:
 
 def _launches():
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
-    return {"flash_attention": FA.launches, "flash_decode": FD.launches,
-            "ssd_scan": SSD.launches}
+    return {"flash_attention": FA.launches, "flash_attention_bwd": FB.launches,
+            "flash_decode": FD.launches, "ssd_scan": SSD.launches}
 
 
 def _zero_launches():
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
-    FA.launches = FD.launches = SSD.launches = 0
+    FA.launches = FB.launches = FD.launches = SSD.launches = 0
 
 
 def _expect_graphs(eng, before, chunks, decode_tokens, what):
@@ -781,7 +798,8 @@ def phase_reference(dev, cfg, params):
     _zero_launches()
     got, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
     counts = _launches()
-    if counts != {"flash_attention": 2, "flash_decode": 8, "ssd_scan": 0}:
+    if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
+                  "flash_decode": 8, "ssd_scan": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     with plain_kernels():
         ref, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
@@ -1076,7 +1094,8 @@ def phase_reference_hybrid(dev, cfg, params):
     share of greedy tokens that agree with the fp32 run's."""
     (got, plain, ref), counts, (toks, plain_toks, ref_toks) = hybrid_runs(
         dev, cfg, params, 7)
-    want = {"flash_attention": 1, "flash_decode": 4, "ssd_scan": 7}
+    want = {"flash_attention": 1, "flash_attention_bwd": 0,
+            "flash_decode": 4, "ssd_scan": 7}
     if counts != want:
         raise AssertionError(f"hybrid reference check launches {counts}, "
                              f"expected {want}")
@@ -1148,7 +1167,8 @@ def phase_reference_moe(dev, cfg, params):
     with routing() as rec:
         got, toks = greedy_run(cfg2, params2, prompt, 128)
     counts = _launches()
-    if counts != {"flash_attention": 2, "flash_decode": 8, "ssd_scan": 0}:
+    if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
+                  "flash_decode": 8, "ssd_scan": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     if not torch.isfinite(got).all():
         raise AssertionError("non-finite logits through the kernels")
@@ -1374,7 +1394,7 @@ def _overlapped_batches(telemetry) -> int:
 
 
 def _expect_launches(counts, chunks, n_layers):
-    want = {"flash_attention": chunks * n_layers,
+    want = {"flash_attention": chunks * n_layers, "flash_attention_bwd": 0,
             "flash_decode": chunks * n_layers * (JOB_DECODE - 1),
             "ssd_scan": 0}
     if counts != want:
@@ -1731,6 +1751,10 @@ LSE_TOL = 1e-4
 #: the bf16 attention backward against fp32 autograd, max |diff| over the
 #: reference's max |value|: bf16 rounds o, do and each gradient
 BWD_TOL = 2e-2
+#: the backward kernels against their plain version, max |diff| over the
+#: plain max |value|: the same arithmetic; bf16 rounds the outputs (2^-9),
+#: and a P or dS on a rounding tie may round the other way
+BWD_KERNEL_TOL = 1e-2
 #: 13c, each leaf's bf16 gradient through the kernels against the same step
 #: with the plain versions in bf16, max |diff| over the plain max |value|
 TRAIN_GRAD_TOL = 5e-2
@@ -1808,16 +1832,23 @@ def phase_lse(dev):
 
 def phase_attention_backward(dev):
     """13b: FlashAttentionFn forward + backward in bf16 against autograd
-    through the plain version in fp32, and its time beside SDPA's."""
+    through the plain version in fp32, and its time beside SDPA's; then the
+    backward kernels alone (on the forward's o and L) against their plain
+    version, timed beside their bound, their plain version and SDPA's
+    backward alone (a yardstick the port never calls: ``aten``'s flash
+    backward, kv heads repeated for GQA)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.models.attention import (FlashAttentionFn,
                                               group_query_heads)
     gen = torch.Generator(device=dev).manual_seed(14)
     rows = {}
-    for name, h, kvh, d in [("stablelm", 32, 32, 64),
-                            ("gqa8_d128", 32, 4, 128)]:
-        b, S = 8, 512
+    for name, S, h, kvh, d in [("stablelm", 512, 32, 32, 64),
+                               ("gqa8_d128", 512, 32, 4, 128),
+                               ("d96", 656, 32, 32, 96)]:
+        b = 8
         q, k, v, do = (torch.randn(b, S, n, d, generator=gen, device=dev)
                        .to(torch.bfloat16) for n in (h, kvh, kvh, h))
 
@@ -1867,10 +1898,61 @@ def phase_attention_backward(dev):
             + f" (tol {BWD_TOL}); ms={ms:.4f} (back to back {b2b_ms:.4f}) "
             f"plain_fp32_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} (back to "
             f"back {lib_b2b_ms:.4f}) bound_ms={b_ms:.4f} ({b_by})")
+
+        # the backward kernels alone, on the forward's o and L
+        o, lse = FA.flash_attention(q, k, v, causal=True, return_lse=True)
+        got = FB.flash_attention_bwd(q, k, v, o, lse, do)
+        again = FB.flash_attention_bwd(q, k, v, o, lse, do)
+        plain = FB.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+        k_errs = {n: rel_err(g.float(), p.float())
+                  for n, g, p in zip(("dq", "dk", "dv"), got, plain)}
+        del got, again, plain
+        if not same_bits or not max(k_errs.values()) <= BWD_KERNEL_TOL:
+            raise AssertionError(f"attention backward kernels {name}: "
+                                 f"{k_errs}, bit-equal twice {same_bits}")
+        k_ms, k_b2b = times(lambda: FB.flash_attention_bwd(
+            q, k, v, o, lse, do), 20)
+        k_plain_ms = cuda_ms(lambda: FB.flash_attention_bwd_plain(
+            q, k, v, o, lse, do), 3)
+        # SDPA's flash backward on its own forward's outputs, fed the (b,
+        # h, s, d) layout it takes, GQA's kv heads repeated outside the
+        # timing (as 13a)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+                  for x in (k, v))
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True)
+        do_t = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do_t, qt, kt, vt, lib[0], lib[1], lib[2], lib[3], lib[4],
+                lib[5], 0.0, True, lib[6], lib[7])
+
+        k_lib_ms, k_lib_b2b = times(sdpa_bwd, 20)
+        del lib, kt, vt
+        kb_ms, kb_by = bound(cost.attention_bwd_bytes(b, S, S, h, kvh, d),
+                             cost.attention_bwd_kernel_flops(b, S, S, h, d))
+        log(f"attention backward kernels {name}: b={b} S={S} H={h} KVH={kvh} "
+            f"D={d} bf16, max |diff| / max |plain|: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in k_errs.items())
+            + f" (tol {BWD_KERNEL_TOL}), bit-equal on a second call; "
+            f"ms={k_ms:.4f} (back to back {k_b2b:.4f}) "
+            f"plain_ms={k_plain_ms:.4f} sdpa_backward_ms={k_lib_ms:.4f} "
+            f"(back to back {k_lib_b2b:.4f}) bound_ms={kb_ms:.4f} ({kb_by}), "
+            f"{100 * kb_ms / k_ms:.1f}% of the bound")
         rows[name] = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
                           library_ms=lib_ms,
                           library_back_to_back_ms=lib_b2b_ms,
-                          bound_ms=b_ms, bound_by=b_by, rel_err=errs)
+                          bound_ms=b_ms, bound_by=b_by, rel_err=errs,
+                          kernels=dict(ms=k_ms, back_to_back_ms=k_b2b,
+                                       plain_ms=k_plain_ms,
+                                       library_ms=k_lib_ms,
+                                       library_back_to_back_ms=k_lib_b2b,
+                                       bound_ms=kb_ms, bound_by=kb_by,
+                                       max_abs_err=max(k_errs.values()),
+                                       rel_err=k_errs))
     return rows
 
 
@@ -2021,6 +2103,14 @@ def phase_train_ordering(dev, cfg, params):
     if loss_free != loss_sync or not all(same):
         raise AssertionError("steps without a host synchronise differ from "
                              "the synchronised ones")
+
+
+def _dense_per_chunk(cfg):
+    """Kernel launches of one training chunk of a dense or MoE model: K1
+    twice a layer (the forward and the recompute), the backward's two
+    kernels (dq, then dk and dv) once each a layer."""
+    return {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": 2 * cfg.n_layers}
 
 
 def phase_train_main(dev, cfg, params, per_chunk, steps=TRAIN_STEPS,
@@ -2218,7 +2308,10 @@ def phase_train_hetero(dev):
         raise AssertionError("work not conserved")
     if not reps[-1].loss < reps[0].loss:
         raise AssertionError(f"the loss did not fall: {out['losses']}")
+    # K1 twice a layer (the forward and the recompute), the backward's two
+    # kernels once each a layer
     if counts != {"flash_attention": accel_chunks * 2 * cfg.n_layers,
+                  "flash_attention_bwd": accel_chunks * 2 * cfg.n_layers,
                   "flash_decode": 0, "ssd_scan": 0}:
         raise AssertionError(f"kernel launches {counts} for {accel_chunks} "
                              f"accel chunks")
@@ -2623,7 +2716,8 @@ def bulk_reference(dev, cfg, params):
     _zero_launches()
     got, toks = greedy_run(cfg2, params2, prompt, 1024)
     counts = _launches()
-    if counts != {"flash_attention": 2, "flash_decode": 8, "ssd_scan": 0}:
+    if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
+                  "flash_decode": 8, "ssd_scan": 0}:
         raise AssertionError(f"the b = 64 check's launches: {counts}")
     with no_tf32(), plain_kernels():
         plain, plain_toks = greedy_run(cfg2, params2, prompt, 1024, toks)
@@ -2754,7 +2848,9 @@ def phase_examples(dev):
                     f"{counts[name]}")
                 if counts[name]["flash_attention"] < 1 or (
                         name != "train_hetero_lm"
-                        and counts[name]["flash_decode"] < 1):
+                        and counts[name]["flash_decode"] < 1) or (
+                        name == "train_hetero_lm"
+                        and counts[name]["flash_attention_bwd"] < 1):
                     raise AssertionError(f"example {name} ran no kernel")
         finally:
             tempfile.tempdir = None
@@ -3071,17 +3167,21 @@ def main():
     rows["flash_attention"]["lse_shapes"] = phase_lse(dev)
     rows["flash_attention"]["training_backward"] = \
         phase_attention_backward(dev)
+    rows["flash_attention_bwd"] = dict(
+        rows["flash_attention"]["training_backward"]["stablelm"]["kernels"],
+        shapes={name: r["kernels"] for name, r in
+                rows["flash_attention"]["training_backward"].items()})
     cfg, params = full_width_model(dev, "stablelm-1.6b")
     phase_train_reference(dev, cfg, params, first_blocks(2),
-                          {"flash_attention": 4, "flash_decode": 0,
-                           "ssd_scan": 0})
+                          {"flash_attention": 4, "flash_attention_bwd": 4,
+                           "flash_decode": 0, "ssd_scan": 0})
     counts["stablelm-1.6b training"], train_out = phase_train_main(
-        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+        dev, cfg, params, _dense_per_chunk(cfg))
     phase_train_ordering(dev, cfg, params)
     # phase 18 on each family's weights, after its main path
     trained = {}
     launches, trained[cfg.arch_id] = phase_train_graphs(
-        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+        dev, cfg, params, _dense_per_chunk(cfg))
     _add_graphed_training(counts, cfg.arch_id, launches)
     counts["stablelm-1.6b tune (18e)"] = phase_tune_graphs(dev, cfg, params)
     del params
@@ -3091,13 +3191,13 @@ def main():
     rows["ssd_scan"]["training_backward"] = phase_ssd_backward(dev)
     cfg, params = full_width_model(dev, "granite-moe-1b-a400m")
     phase_train_reference(dev, cfg, params, first_blocks(2),
-                          {"flash_attention": 4, "flash_decode": 0,
-                           "ssd_scan": 0})
+                          {"flash_attention": 4, "flash_attention_bwd": 4,
+                           "flash_decode": 0, "ssd_scan": 0})
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
-        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+        dev, cfg, params, _dense_per_chunk(cfg))
     phase_recompute_routing(dev, cfg, params)
     launches, trained[cfg.arch_id] = phase_train_graphs(
-        dev, cfg, params, {"flash_attention": 2 * cfg.n_layers})
+        dev, cfg, params, _dense_per_chunk(cfg))
     _add_graphed_training(counts, cfg.arch_id, launches)
     del params
     free_model()
@@ -3105,14 +3205,15 @@ def main():
     cfg, params = full_width_model(dev, "zamba2-1.2b")
     phase_train_reference(dev, cfg, params,
                           lambda c, p: hybrid_cut(c, p, 7),
-                          {"flash_attention": 2, "flash_decode": 0,
-                           "ssd_scan": 2 * 6 + 1})
+                          {"flash_attention": 2, "flash_attention_bwd": 2,
+                           "flash_decode": 0, "ssd_scan": 2 * 6 + 1})
     # remat per group: a group's Mamba-2 blocks and shared block run twice
     # a chunk (forward, recompute), the tail blocks once, as in the JAX
     # package (src/repro/models/hybrid.py:63-67)
     n_groups, k, tail = hybrid_layout(cfg)
     per_chunk = {"ssd_scan": 2 * n_groups * k + tail,
-                 "flash_attention": 2 * n_groups}
+                 "flash_attention": 2 * n_groups,
+                 "flash_attention_bwd": 2 * n_groups}
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, per_chunk)
     launches, trained[cfg.arch_id] = phase_train_graphs(dev, cfg, params,
@@ -3122,8 +3223,8 @@ def main():
     free_model()
     cfg, params = full_width_model(dev, "xlstm-350m")
     phase_train_reference(dev, cfg, params, first_pair,
-                          {"flash_attention": 0, "flash_decode": 0,
-                           "ssd_scan": 0})
+                          {"flash_attention": 0, "flash_attention_bwd": 0,
+                           "flash_decode": 0, "ssd_scan": 0})
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, {}, steps=XLSTM_TRAIN_STEPS,
         seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
@@ -3143,6 +3244,10 @@ def main():
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73"),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "none: src/repro/models/attention.py:258 _flash_bwd_rule is "
+            "plain JAX"),
         "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                          "src/repro/kernels/flash_decode.py:62"),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -3162,7 +3267,7 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_back_to_back_ms": r["library_back_to_back_ms"],
             "blocks_per_sm": {k: v for k, v in occ.items()
-                              if k.startswith(name)},
+                              if k.split(" ")[0] == name},
             "shapes": r.get("shapes", {}),
             **{k: r[k] for k in ("lse_shapes", "training_backward")
                if k in r}})

@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-KERNELS = ("flash_attention", "flash_decode", "ssd_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -54,6 +54,22 @@ def attention_bwd_flops(b: int, sq: int, skv: int, h: int, d: int) -> int:
     return 2 * b * sq * h * d + 10 * b * h * d * sq * skv
 
 
+def attention_bwd_kernel_flops(b: int, sq: int, skv: int, h: int, d: int,
+                               causal: bool = True) -> int:
+    """The backward kernels' least work: five products of 2 d FLOPs a
+    (row, column) pair a head (S, dv, dP, dq, dk), and the scores and dP
+    again in the second pass: seven."""
+    return 14 * b * h * d * attention_pairs(sq, skv, causal)
+
+
+def attention_bwd_bytes(b: int, sq: int, skv: int, h: int, kvh: int,
+                        d: int) -> int:
+    """The backward kernels: q, o, do, k, v read and dq, dk, dv written in
+    bf16, fp32 L read."""
+    return 2 * (3 * b * sq * h * d + 2 * b * skv * kvh * d) \
+        + 2 * (b * sq * h * d + 2 * b * skv * kvh * d) + 4 * b * h * sq
+
+
 def decode_flops(rows_read: int, h: int, d: int) -> int:
     """K2: the cache rows read (the sum of kv_len over the batch) against
     every query head of their kv head."""

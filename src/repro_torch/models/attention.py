@@ -10,8 +10,9 @@ Neither has a backward on CUDA (the kernels raise if asked for one).
 Training goes through ``FlashAttentionFn``, the counterpart of the JAX
 package's ``flash_attention_jax`` custom VJP: the forward is the
 flash-attention kernel writing its row log-sum-exp L (on the CPU, the
-kernel's plain version); the backward, the same code on both, is
-``_flash_bwd_rule`` blocked over (q chunk, kv chunk) in fp32.
+kernel's plain version); the backward is the flash-attention backward
+kernels on CUDA, and on the CPU ``_flash_bwd_rule`` blocked over (q chunk,
+kv chunk) in fp32.
 
 GQA layout convention: q is grouped as (b, s, g, m, hd) where g = n_kv_heads
 and m = n_heads // n_kv_heads; k/v are (b, s, g, hd). The model calls them
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import cost, ops
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.sharding.partition import active_mesh, run_local
 
 NEG_INF = -1e30
@@ -274,8 +276,10 @@ class FlashAttentionFn(torch.autograd.Function):
     layout and semantics of ``chunked_attention`` without ``kv_len`` or
     ``q_offset``. The forward is the flash-attention kernel with its row
     log-sum-exp (``kernels.ops.attention_bshd(return_lse=True)``; on the
-    CPU that is the kernel's plain version); the backward is ``_flash_bwd``
-    on either device. The chunks cut the backward's blocks only."""
+    CPU that is the kernel's plain version); the backward is the
+    flash-attention backward kernels on CUDA
+    (``kernels.flash_attention_bwd``) and ``_flash_bwd`` on the CPU. The
+    chunks cut the CPU backward's blocks only."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, q_chunk: int = 512,
@@ -300,6 +304,13 @@ class FlashAttentionFn(torch.autograd.Function):
                 b, sq, k.shape[1], g * m, hd), 0)
             return (torch.empty_like(q), torch.empty_like(k),
                     torch.empty_like(v), None, None, None)
+        if q.is_cuda:
+            b, sq, g, m, hd = q.shape
+            dq, dk, dv = flash_attention_bwd(
+                ungroup_heads(q), k, v, ungroup_heads(o),
+                L.view(b, g * m, sq), ungroup_heads(do.contiguous()),
+                causal=ctx.causal)
+            return group_query_heads(dq, g), dk, dv, None, None, None
         dq, dk, dv = _flash_bwd(q, k, v, o, L, do, ctx.causal, ctx.q_chunk,
                                 ctx.kv_chunk)
         return dq, dk, dv, None, None, None

@@ -20,11 +20,13 @@ from repro.kernels.flash_decode import flash_decode as pallas_fd
 from repro.models.attention import chunked_attention as jax_chunked
 from repro.models.attention import group_query_heads as jax_group
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_attention_bwd as FB
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels._checks import check_attention_sizes
+from repro_torch.models import attention as tattn
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -116,6 +118,169 @@ def test_ops_attention_bshd_matches_model_layout():
     with pytest.raises(ValueError):
         ops.attention_bshd(torch.from_numpy(q), torch.from_numpy(k),
                            torch.from_numpy(v), n_heads=h, n_kv_heads=1)
+
+
+# ---------------------------------------------------------------------------
+# flash-attention backward
+# ---------------------------------------------------------------------------
+
+def _bwd_case(b, s, h, kvh, d, dtype, causal=True, seed=11):
+    """q, k, v, the plain forward's o and L, and do, in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, s, h, d, generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, kvh, d, generator=gen).to(dtype)
+            for _ in range(2))
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _flash_bwd_model_layout(q, k, v, o, lse, do, causal, chunk):
+    """``models.attention._flash_bwd`` (the CPU's backward, fp32) in the
+    wrapper's layout."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    group = tattn.group_query_heads
+    dq, dk, dv = tattn._flash_bwd(group(q, g), k, v, group(o, g),
+                                  lse.view(b, g, h // g, s), group(do, g),
+                                  causal, chunk, chunk)
+    return dq.reshape(b, s, h, d), dk, dv
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    # fp32: the roundings to the inputs' dtype are no-ops, so only the
+    # order of the sums and where the scale is applied differ
+    (torch.float32, 1e-5),
+    # bf16: P and dS rounded to bf16 before their products (2^-9 each),
+    # _flash_bwd keeps them in fp32; then bf16 outputs
+    (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,kvh,causal", [(4, 4, True), (8, 2, True),
+                                          (8, 2, False)])
+def test_flash_attention_bwd_plain_matches_flash_bwd(dtype, tol, h, kvh,
+                                                     causal):
+    """The backward kernels' plain version against the CPU's blocked
+    backward at GQA 1:1 and 4:1, a length no 64-row tile divides, causal
+    and full: dq, dk, dv within ``tol`` of the blocked backward's largest
+    magnitude."""
+    args = _bwd_case(2, 100, h, kvh, 32, dtype, causal)
+    got = FB.flash_attention_bwd_plain(*args, causal=causal)
+    exp = _flash_bwd_model_layout(*args, causal=causal, chunk=48)
+    for name, a, e in zip(("dq", "dk", "dv"), got, exp):
+        assert a.dtype == dtype and a.shape == e.shape, name
+        err = ((a.float() - e.float()).abs().max()
+               / e.float().abs().max()).item()
+        assert err <= tol, (name, err)
+
+
+def test_flash_attention_bwd_on_the_cpu_is_the_plain_version():
+    """For CPU tensors the wrapper computes the plain version and counts
+    no launch."""
+    args = _bwd_case(1, 40, 4, 2, 16, torch.float32)
+    before = FB.launches
+    got = FB.flash_attention_bwd(*args)
+    exp = FB.flash_attention_bwd_plain(*args)
+    assert FB.launches == before
+    assert all(torch.equal(a, e) for a, e in zip(got, exp))
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("change,error,match", [
+    ({"q": _meta(1, 64, 4, 64, dtype=torch.float32)}, TypeError,
+     "takes bfloat16"),
+    ({"do": _meta(1, 64, 4, 64, dtype=torch.float16)}, TypeError,
+     "takes bfloat16"),
+    ({"q": _meta(1, 64, 4, 48), "o": _meta(1, 64, 4, 48),
+      "do": _meta(1, 64, 4, 48), "k": _meta(1, 64, 2, 48),
+      "v": _meta(1, 64, 2, 48)}, ValueError, "head dim 48"),
+    ({"k": _meta(1, 64, 3, 64), "v": _meta(1, 64, 3, 64)}, ValueError,
+     "does not match"),
+    ({"v": _meta(1, 32, 2, 64)}, ValueError, "expected q, o, do"),
+    ({"o": _meta(1, 64, 4, 32)}, ValueError, "expected q, o, do"),
+    ({"lse": _meta(1, 4, 64, dtype=torch.bfloat16)}, ValueError, "lse"),
+    ({"lse": _meta(1, 64, 4, dtype=torch.float32)}, ValueError, "lse"),
+    ({"lse": _meta(1, 64, 4, dtype=torch.float32).transpose(1, 2)},
+     ValueError, "lse"),
+    ({"q": _meta(1, 64, 4, 128)[..., ::2]}, ValueError, "contiguous head"),
+    ({"k": _meta(1, 64, 2, 68)[..., :64]}, ValueError, "multiples of 8"),
+    ({"lse": torch.empty(1, 4, 64)}, ValueError, "lse is on cpu"),
+    ({}, ValueError, "runs on CUDA or the CPU"),
+])
+def test_flash_attention_bwd_refuses_what_the_kernels_do_not_take(
+        change, error, match):
+    """Off the CPU (meta tensors stand in for CUDA ones) the wrapper
+    checks dtypes, shapes, head dims, L and strides before it looks for a
+    card, and raises on each with its reason."""
+    args = dict(q=_meta(1, 64, 4, 64), k=_meta(1, 64, 2, 64),
+                v=_meta(1, 64, 2, 64), o=_meta(1, 64, 4, 64),
+                lse=_meta(1, 4, 64, dtype=torch.float32),
+                do=_meta(1, 64, 4, 64))
+    args.update(change)
+    with pytest.raises(error, match=match):
+        FB.flash_attention_bwd(**args)
+
+
+def test_flash_attention_bwd_kernel_names_escape_the_benchmarks_patterns():
+    """Every ``__global__`` of the backward's source, as the profiler
+    names it, matches none of the benchmark's kernel patterns (K1's launch
+    count in ``k1_roofline.train`` reads them)."""
+    import re
+    from pathlib import Path
+
+    from gpubench.cost import kernel_of
+    src = (Path(FB.__file__).with_name("csrc")
+           / "flash_attention_bwd.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)", src)
+    assert sorted(names) == ["flash_attention_bwd_dkdv_kernel",
+                             "flash_attention_bwd_dq_kernel"]
+    for name in names:
+        for shown in (name, f"void (anonymous namespace)::{name}<64>("
+                            f"__nv_bfloat16 const*, float*, int)"):
+            assert kernel_of(shown) is None, shown
+
+
+def test_flash_attention_fn_backward_routes_cuda_tensors_to_the_kernels(
+        monkeypatch):
+    """On a CUDA tensor (a stand-in for ``is_cuda`` here)
+    ``FlashAttentionFn``'s backward hands the model layout to the
+    backward kernels' wrapper (ungrouped heads, L as (b, h, s), a
+    contiguous do) and never calls ``_flash_bwd``; fed the plain version
+    there, its gradients are the CPU backward's."""
+    seen = []
+
+    def fake_bwd(q, k, v, o, lse, do, *, causal):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(lse.shape),
+                     do.is_contiguous(), causal))
+        return FB.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=causal)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("_flash_bwd called for a CUDA tensor")
+
+    gen = torch.Generator().manual_seed(5)
+    b, s, g, m, d = 2, 24, 2, 3, 16
+    q = torch.randn(b, s, g, m, d, generator=gen)
+    k, v = (torch.randn(b, s, g, d, generator=gen) for _ in range(2))
+    qe, ke, ve = (t.clone().requires_grad_() for t in (q, k, v))
+    exp = torch.autograd.grad(
+        tattn.FlashAttentionFn.apply(qe, ke, ve, True, 8, 8).sum(),
+        (qe, ke, ve))
+    monkeypatch.setattr(tattn, "flash_attention_bwd", fake_bwd)
+    monkeypatch.setattr(tattn, "_flash_bwd", refuse)
+    qc, kc, vc = (t.clone().requires_grad_() for t in (q, k, v))
+    o = tattn.FlashAttentionFn.apply(qc, kc, vc, True, 8, 8)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    got = torch.autograd.grad(o.sum(), (qc, kc, vc))
+    monkeypatch.undo()
+    assert seen == [((b, s, g * m, d), (b, s, g, d), (b, g * m, s), True,
+                     True)]
+    for a, e in zip(got, exp):
+        assert a.shape == e.shape
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    at head dim 128 for deepseek-7b and phi3-medium-14b: d128, gqa4_d128,
    and long_d128 at a 4096-token prompt; K2 at
    each model's decode: main, ragged, gqa, d96, gqa8_d128, b1, gqa2, and
-   bulk64, every split count of its sweep held too; K3 at zamba2's): max
+   bulk64, every split count of its sweep held too; K3 at zamba2's, and
+   at granite-4.0-h-micro's state size 128 over a 2048-token prompt): max
    abs error and tolerance, two times per
    call (``ms``: the device alone, many calls captured in one CUDA graph
    and replayed between CUDA events; ``back_to_back_ms``: the same calls
@@ -604,16 +605,19 @@ def kernel_variants(dev, gen):
 
 def ssd_rows(dev, gen):
     """K3 at the zamba2 prefill shape (b=8, 64 heads, P=N=64, chunk 128),
-    x/B/C as column slices of one conv output, inputs scaled as
-    tests/test_kernels.py::test_ssd_scan_sweep scales them."""
+    then at granite-4.0-h-micro's state size (N=128) over a 2048-token
+    prompt (``state128``, the row ``shapes`` keeps with its resident
+    blocks per SM), x/B/C as column slices of one conv output, inputs
+    scaled as tests/test_kernels.py::test_ssd_scan_sweep scales them."""
     import torch.nn.functional as F
     from repro_torch.kernels import cost
     from repro_torch.kernels import ssd_scan as SSD
-    row, max_err = None, 0.0
-    for name, s, g, with_init in [("main", 512, 1, False),
-                                  ("ragged", 1000, 1, True),
-                                  ("grouped", 512, 8, False)]:
-        b, nh, P, N, Q = 8, 64, 64, 64, 128
+    row, max_err, shapes = None, 0.0, {}
+    for name, s, g, with_init, N in [("main", 512, 1, False, 64),
+                                     ("ragged", 1000, 1, True, 64),
+                                     ("grouped", 512, 8, False, 64),
+                                     ("state128", 2048, 1, False, 128)]:
+        b, nh, P, Q = 8, 64, 64, 128
         conv = (torch.randn(b, s, nh * P + 2 * g * N, generator=gen,
                             device=dev) * 0.5).to(torch.bfloat16)
         x = conv[..., :nh * P].unflatten(-1, (nh, P))
@@ -642,18 +646,26 @@ def ssd_rows(dev, gen):
         nbytes = cost.ssd_bytes(b, s, nh, P, g, N, with_init)
         flops = cost.ssd_flops(b, s, nh, P, N, Q)
         b_ms, b_by = bound(nbytes, flops)
+        blocks, _ = SSD.occupancy(P, N, dev)
         log(f"ssd_scan {name}: b={b} S={s} nh={nh} P={P} N={N} g={g} "
             f"Q={Q} init_state={with_init} max_abs_err y={err_y:.3e} "
             f"({rel_y:.3e} of max |y|) state={err_s:.3e} ({rel_s:.3e} of "
             f"max |state|) (tol {SSD_TOL} of max) ms={ms:.4f} (back to "
             f"back {b2b_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
             f"({b_by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; {blocks} "
+            f"blocks per SM)")
         if name == "main":
             row = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
                        library_back_to_back_ms=None)
+        elif name == "state128":
+            shapes[name] = dict(ms=ms, back_to_back_ms=b2b_ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, blocks_per_sm=blocks,
+                                max_err_of_max=max(rel_y, rel_s))
     row["max_abs_err"] = max_err
+    row["shapes"] = shapes
     return row
 
 

@@ -12,6 +12,8 @@ Families
 ``moe``     dense attention + mixture-of-experts FFN (top-k routing, EP-sharded)
 ``ssm``     xLSTM: alternating mLSTM / sLSTM blocks
 ``hybrid``  Zamba2-style: Mamba-2 backbone with a shared attention block
+``granite_hybrid``  Granite-4.0-H-style: a layer pattern of Mamba-2 and GQA
+            attention mixers, each layer with its own weights and MLP
 """
 from __future__ import annotations
 
@@ -69,14 +71,21 @@ class XLSTMConfig:
 
 @dataclass(frozen=True)
 class HybridConfig:
-    """Zamba2-style hybrid: Mamba-2 backbone + shared attention block."""
+    """Zamba2-style hybrid: Mamba-2 backbone + shared attention block; or
+    (``granite_hybrid``) the layers whose mixer is attention, the others'
+    Mamba-2."""
     attn_every: int = 6          # apply the shared attention block every k SSM blocks
+    attn_layers: Tuple[int, ...] = ()   # granite_hybrid: attention layers
+
+    def __post_init__(self):
+        # a list from a JSON file: kept as a tuple, so the config hashes
+        object.__setattr__(self, "attn_layers", tuple(self.attn_layers))
 
 
 @dataclass(frozen=True)
 class LMConfig:
     arch_id: str
-    family: str                  # dense | vlm | audio | moe | ssm | hybrid
+    family: str                  # dense | vlm | audio | moe | ssm | hybrid | granite_hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -93,6 +102,13 @@ class LMConfig:
     tie_embeddings: bool = False
     prefix_len: int = 0          # stubbed modality prefix (vlm/audio conditioning)
     norm_eps: float = 1e-5
+    # muP multipliers (Granite 4.0): the embedding's output, each mixer's
+    # and each MLP's output before its residual add, the softmax scale
+    # (0 -> 1 / sqrt(head_dim)), and the divisor of the logits
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
@@ -168,6 +184,20 @@ class LMConfig:
             shared_attn = d * self.n_heads * hd * 2 \
                 + 2 * d * self.n_kv_heads * hd + d * self.d_ff * 3
             return n_emb + self.n_layers * blk + shared_attn
+        elif self.family == "granite_hybrid":
+            s = self.ssm
+            d_inner = s.expand * d
+            nheads = d_inner // s.head_dim
+            conv_dim = d_inner + 2 * s.n_groups * s.d_state
+            mamba = d * (2 * d_inner + 2 * s.n_groups * s.d_state + nheads) \
+                + (s.d_conv + 1) * conv_dim + 3 * nheads + d_inner \
+                + d_inner * d + d
+            attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                + self.n_heads * hd * d + d
+            mlp = d * self.d_ff * 3 + d
+            n_attn = len(self.hybrid.attn_layers)
+            return n_emb + (self.n_layers - n_attn) * (mamba + mlp) \
+                + n_attn * (attn + mlp) + d
         total = n_emb + self.n_layers * per_layer + d
         return total
 
@@ -215,7 +245,8 @@ def shape_applicable(cfg: LMConfig, shape: ShapeSuite) -> Tuple[bool, str]:
 def reduced(cfg: LMConfig) -> LMConfig:
     """A tiny same-family config for CPU smoke tests (shapes asserted, no NaNs)."""
     kw = dict(
-        n_layers=2 if cfg.family not in ("ssm", "hybrid") else 4,
+        n_layers=2 if cfg.family not in ("ssm", "hybrid", "granite_hybrid")
+        else 4,
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2),
@@ -236,5 +267,7 @@ def reduced(cfg: LMConfig) -> LMConfig:
     if cfg.xlstm:
         kw["xlstm"] = dataclasses.replace(cfg.xlstm, chunk_size=16)
     if cfg.hybrid:
-        kw["hybrid"] = dataclasses.replace(cfg.hybrid, attn_every=2)
+        kw["hybrid"] = dataclasses.replace(
+            cfg.hybrid, attn_every=2,
+            attn_layers=(1,) if cfg.hybrid.attn_layers else ())
     return cfg.replace(**kw)

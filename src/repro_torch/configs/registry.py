@@ -8,7 +8,7 @@ from repro_torch.configs.base import LMConfig, ShapeSuite, SHAPES, SHAPES_BY_NAM
 
 from repro_torch.configs import yi_6b, deepseek_7b, phi3_medium_14b, stablelm_1_6b, \
     phi3_vision_4_2b, musicgen_large, xlstm_350m, phi35_moe_42b, \
-    granite_moe_1b, zamba2_1_2b
+    granite_moe_1b, zamba2_1_2b, granite_4_0_h_micro
 
 _MODULES = (
     yi_6b, deepseek_7b, phi3_medium_14b, stablelm_1_6b, phi3_vision_4_2b,
@@ -17,12 +17,20 @@ _MODULES = (
 
 ARCHS: Dict[str, LMConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
 
+#: architectures the port serves and trains that the JAX package has no
+#: counterpart of: ``--arch`` resolves them, and they stay out of the
+#: dry-run matrix (``list_archs``, ``dryrun_cells``), which is the
+#: reference's
+PORT_ONLY: Dict[str, LMConfig] = {
+    m.CONFIG.arch_id: m.CONFIG for m in (granite_4_0_h_micro,)}
+
 
 def get_config(arch_id: str) -> LMConfig:
-    if arch_id not in ARCHS:
+    known = {**ARCHS, **PORT_ONLY}
+    if arch_id not in known:
         raise KeyError(
-            f"unknown arch {arch_id!r}; available: {sorted(ARCHS)}")
-    return ARCHS[arch_id]
+            f"unknown arch {arch_id!r}; available: {sorted(known)}")
+    return known[arch_id]
 
 
 def get_reduced_config(arch_id: str) -> LMConfig:
@@ -45,5 +53,5 @@ def dryrun_cells(include_skips: bool = False):
     return cells
 
 
-__all__ = ["ARCHS", "get_config", "get_reduced_config", "list_archs",
-           "dryrun_cells", "SHAPES", "SHAPES_BY_NAME"]
+__all__ = ["ARCHS", "PORT_ONLY", "get_config", "get_reduced_config",
+           "list_archs", "dryrun_cells", "SHAPES", "SHAPES_BY_NAME"]

@@ -53,7 +53,12 @@
 //     bank conflicts: two stages of x, B, C (2 x 48 KB), S_hi/S_lo (16 KB)
 //     and cum/dt (1 KB), 115,712 bytes at P = N = 64, Q = 128: two blocks
 //     per SM with 256 threads of at most 128 registers
-//     (repro_ssd_scan_occupancy reports it).
+//     (repro_ssd_scan_occupancy reports it);
+//   * at N = 128 (P = 64) the state is 32 KB: its 8 row tiles take all 8
+//     warps, each beside its row tile of y, and the two stages (2 x 80 KB)
+//     with S_hi/S_lo (32 KB) come to 197,632 bytes, one block per SM, so
+//     the kernel is built for one block of at most 255 registers a thread
+//     (no spill).
 // x, B and C are read in the model layout through strides (column slices
 // of the conv output); head h reads group h / (nh / g), so B/C are never
 // repeated to every head and nothing is transposed in HBM. init_state
@@ -138,12 +143,14 @@ __device__ __forceinline__ float round_bf16(float x) {
 
 // Element offset of (row, col) in a tile of W-element rows whose 16-byte
 // pieces are XOR-swizzled so that 8 consecutive rows' pieces at one column
-// fall in distinct banks (W = 16 or 64).
+// fall in distinct banks (W = 16, 64 or 128; a row of 128 spans two
+// 128-byte lines, and only the piece's place within its line is swizzled).
 template <int W>
 __device__ __forceinline__ int swz(int row, int col) {
-  constexpr int WC = W / 8;      // 16-byte pieces per row
-  constexpr int RPL = 8 / WC;    // rows per 128-byte line
-  return row * W + (((col >> 3) ^ ((row / RPL) % WC)) << 3) + (col & 7);
+  constexpr int WC = W / 8;                   // 16-byte pieces per row
+  constexpr int RPL = WC >= 8 ? 1 : 8 / WC;   // rows per 128-byte line
+  constexpr int M = WC >= 8 ? 8 : WC;         // pieces swizzled together
+  return row * W + (((col >> 3) ^ ((row / RPL) % M)) << 3) + (col & 7);
 }
 
 template <int P, int N>
@@ -152,6 +159,9 @@ struct Cfg {
   static constexpr int STAGE = QMAX * (P + 2 * NP);  // x, B, C (elements)
   static constexpr int SMEM =
       (2 * STAGE + 2 * NP * P) * 2 + 2 * QMAX * 4;
+  // blocks per SM the registers are budgeted for: two while two blocks'
+  // shared memory fits an SM (228 KB), else one
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
 };
 
 // Rows [t0, t0 + L) of x, B and C -> one stage; rows L..QP-1 and B/C's
@@ -180,7 +190,7 @@ __device__ __forceinline__ void load_chunk(
 }
 
 template <int P, int N>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, Cfg<P, N>::MIN_BLOCKS)
 ssd_scan_kernel(const __nv_bfloat16* __restrict__ x,
                 const float* __restrict__ dt, const float* __restrict__ A,
                 const __nv_bfloat16* __restrict__ B,
@@ -198,8 +208,9 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int KN = NP / 16;      // k-steps over the state size
   constexpr int MT = NP / 16;      // 16-row tiles of the state
   static_assert(P == 16 || P == 64, "P is 16 or 64");
-  static_assert(NP == 16 || NP == 64, "N is at most 16 or 64");
-  static_assert(MT <= 4, "warps 0..3 hold the state's row tiles");
+  static_assert(NP == 16 || NP == 64 || NP == 128,
+                "N is at most 16, 64 or 128");
+  static_assert(MT <= THREADS / 32, "a warp for each row tile of the state");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_hi = stage0 + 2 * Cf::STAGE;   // [NP][P]
@@ -226,7 +237,8 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ x,
   const int nchunks = (s + Q - 1) / Q;
 
   // Warps 0 .. MT-1 hold the state, 16 of its rows each over all P
-  // columns, in the registers of an mma accumulator (a C fragment).
+  // columns, in the registers of an mma accumulator (a C fragment): warps
+  // 0..3 at N <= 64, all 8 at N = 128.
   const bool has_state = warp < MT;
   const int sn0 = warp * 16;
   float st[PY][4];
@@ -534,6 +546,10 @@ extern "C" int repro_ssd_scan_bf16(
     rc = launch<64, 64>(x, dtp, Ap, B, C, init, y, out, b, s, nh, g, Q, x_sb,
                         x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg,
                         c_sb, c_ss, c_sg, st);
+  else if (P == 64 && N == 128)
+    rc = launch<64, 128>(x, dtp, Ap, B, C, init, y, out, b, s, nh, g, Q,
+                         x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss,
+                         b_sg, c_sb, c_ss, c_sg, st);
   else if (P == 16 && N == 8)
     rc = launch<16, 8>(x, dtp, Ap, B, C, init, y, out, b, s, nh, g, Q, x_sb,
                        x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg,
@@ -551,6 +567,7 @@ extern "C" int repro_ssd_scan_occupancy(int P, int N, int device, int* blocks,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (P == 64 && N == 64) return occupancy<64, 64>(blocks, smem_bytes);
+  if (P == 64 && N == 128) return occupancy<64, 128>(blocks, smem_bytes);
   if (P == 16 && N == 8) return occupancy<16, 8>(blocks, smem_bytes);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@ x (b, s, nh, P), dt (b, s, nh), A (nh,), B/C (b, s, g, N), an optional
 their strides (column slices of the conv output, not copied), head ``h``
 reads group ``h // (nh / g)`` (B/C are not repeated to every head), and
 one block per (b, head) loops over the chunks in order with the N×P state
-in registers, its products on the tensor cores (bf16 operands rounded
+in registers (at N = 128 in all 8 warps, one block per SM), its
+products on the tensor cores (bf16 operands rounded
 where ``repro.models.ssm`` rounds them, fp32 accumulation) and the next
 chunk's x/B/C in flight. A ragged last chunk is masked: steps past ``s``
 are never read and act as dt = 0 (no decay, no state write), as the
@@ -38,7 +39,7 @@ from repro_torch.kernels._checks import (check_cuda_bf16, check_no_grad,
 
 NEG_INF = -1e30
 #: (head dim P, state size N) pairs the kernel is instantiated for
-SHAPES = ((16, 8), (64, 64))
+SHAPES = ((16, 8), (64, 64), (64, 128))
 #: the largest chunk the kernel's shared memory is sized for
 MAX_CHUNK = 128
 #: kernel launches made by ssd_scan() (the CUDA route only), counted

@@ -172,6 +172,13 @@ def mlp_defs(d_model: int, d_ff: int, gated: bool, dtype: str):
     return out
 
 
+def residual_add(cfg, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, the branch ``y`` scaled by ``cfg.residual_multiplier``
+    first where it is not 1 (Granite's muP residual: ``x + y * m``)."""
+    m = cfg.residual_multiplier
+    return x + (y if m == 1.0 else y * m)
+
+
 def mlp_fwd(p: Dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     h = matmul(x, p["wi"])
     if gated:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig, ShapeSuite
+from repro_torch.models import granite_hybrid as granite
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
@@ -30,7 +31,8 @@ from repro_torch.models.layers import (ParamDef, abstract_from_defs,
 from repro_torch.sharding.partition import place, settle
 
 #: the attention families, served by ``transformer``; ``ssm`` (xLSTM) is
-#: assembled here, ``hybrid`` (zamba2) is served by ``hybrid``
+#: assembled here, ``hybrid`` (zamba2) is served by ``hybrid``,
+#: ``granite_hybrid`` by ``granite_hybrid``
 ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
@@ -184,6 +186,8 @@ def param_defs(cfg: LMConfig) -> Dict:
         return _xlstm_defs(cfg)
     if cfg.family == "hybrid":
         return hyb.hybrid_defs(cfg)
+    if cfg.family == "granite_hybrid":
+        return granite.granite_defs(cfg)
     raise ValueError(cfg.family)
 
 
@@ -215,6 +219,9 @@ def forward(cfg: LMConfig, params, tokens, prefix_emb=None, remat=False,
     if cfg.family == "hybrid":
         return hyb.forward(cfg, params, tokens, prefix_emb, remat,
                            return_hidden)
+    if cfg.family == "granite_hybrid":
+        return granite.forward(cfg, params, tokens, prefix_emb, remat,
+                               return_hidden)
     raise ValueError(cfg.family)
 
 
@@ -229,6 +236,8 @@ def prefill(cfg: LMConfig, params, tokens, prefix_emb=None, max_len=None):
         return _xlstm_prefill(cfg, params, tokens, prefix_emb, max_len)
     if cfg.family == "hybrid":
         return hyb.prefill(cfg, params, tokens, prefix_emb, max_len)
+    if cfg.family == "granite_hybrid":
+        return granite.prefill(cfg, params, tokens, prefix_emb, max_len)
     raise ValueError(cfg.family)
 
 
@@ -239,6 +248,8 @@ def decode_step(cfg: LMConfig, params, cache, tokens):
         return _xlstm_decode(cfg, params, cache, tokens)
     if cfg.family == "hybrid":
         return hyb.decode_step(cfg, params, cache, tokens)
+    if cfg.family == "granite_hybrid":
+        return granite.decode_step(cfg, params, cache, tokens)
     raise ValueError(cfg.family)
 
 
@@ -252,6 +263,8 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
         return _xlstm_init_cache(cfg, batch, max_len, device)
     if cfg.family == "hybrid":
         return hyb.init_cache(cfg, batch, max_len, device)
+    if cfg.family == "granite_hybrid":
+        return granite.init_cache(cfg, batch, max_len, device)
     raise ValueError(cfg.family)
 
 
@@ -262,7 +275,30 @@ def cache_axes(cfg: LMConfig):
         return _xlstm_cache_axes(cfg)
     if cfg.family == "hybrid":
         return hyb.cache_axes(cfg)
+    if cfg.family == "granite_hybrid":
+        return granite.cache_axes(cfg)
     raise ValueError(cfg.family)
+
+
+#: the kind of each cache leaf the engine counts: attention's K/V, the
+#: recurrent states (Mamba-2's and xLSTM's), the Mamba-2 conv windows
+CACHE_KINDS = {"k": "kv", "v": "kv", "ak": "kv", "av": "kv",
+               "ssm_state": "ssm_state", "tail_state": "ssm_state",
+               "conv": "conv", "tail_conv": "conv",
+               **{k: "ssm_state" for k in ("mC", "mn", "mm", "sc", "sn",
+                                           "sh", "sm")}}
+
+
+def cache_bytes(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, int]:
+    """The bytes of a ``batch``-row cache by kind (``kv``, ``ssm_state``,
+    ``conv``; ``pos`` not counted), from the abstract cache: nothing is
+    allocated."""
+    out = {"kv": 0, "ssm_state": 0, "conv": 0}
+    for key, t in init_cache(cfg, batch, max_len,
+                             torch.device("meta")).items():
+        if key in CACHE_KINDS:
+            out[CACHE_KINDS[key]] += t.numel() * t.element_size()
+    return out
 
 
 # ---------------------------------------------------------------------------

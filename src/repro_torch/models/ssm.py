@@ -33,7 +33,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import cost, ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.layers import (ParamDef, mlp_defs, mlp_fwd,
-                                       norm_defs, rmsnorm)
+                                       norm_defs, residual_add, rmsnorm)
 from repro_torch.sharding.partition import (elementwise, lshard, matmul,
                                            on_shards, pin, split_last)
 
@@ -180,7 +180,8 @@ def mamba2_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
                      return_state: bool = False):
     """Full-sequence Mamba-2 block. x: (b, s, d). With ``return_state``
     also returns (final ssm state (b, nh, hd, n) fp32, the last d_conv - 1
-    rows of the conv input (b, d_conv - 1, conv_dim))."""
+    rows of the conv input (b, d_conv - 1, conv_dim)). The block's output
+    joins the residual scaled by ``cfg.residual_multiplier``."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
     di, nh, conv_dim = mamba2_dims(cfg)
@@ -203,8 +204,8 @@ def mamba2_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
     y = y.reshape(b, s, di)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = lshard(x + matmul(y, p["out_proj"]), "act_batch", "act_res_seq",
-                 "act_embed")
+    out = lshard(residual_add(cfg, x, matmul(y, p["out_proj"])),
+                 "act_batch", "act_res_seq", "act_embed")
     if return_state:
         assert s >= s_cfg.d_conv - 1, "prefill shorter than conv window"
         conv_tail = xBC_raw[:, s - (s_cfg.d_conv - 1):, :]
@@ -244,7 +245,7 @@ def mamba2_decode_step(cfg: LMConfig, p: Dict, x: torch.Tensor,
                    rows, ("ssm_heads",)), [rows])
     y = y.reshape(b, 1, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = x + y @ p["out_proj"]
+    out = residual_add(cfg, x, y @ p["out_proj"])
     conv_buf.copy_(win[:, 1:])
     return out, state, conv_buf
 

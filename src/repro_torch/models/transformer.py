@@ -14,6 +14,7 @@ the MoE blocks' aux losses summed over the layers.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -25,7 +26,7 @@ from repro_torch.models.attention import (FlashAttentionFn, attend,
                                           chunked_attention, decode_attention)
 from repro_torch.models.layers import (ParamDef, apply_rope, mlp_defs,
                                        checkpointed, mlp_fwd, norm,
-                                       norm_defs, rope_freqs)
+                                       norm_defs, residual_add, rope_freqs)
 from repro_torch.sharding.partition import (active_mesh, lshard, matmul,
                                            on_shards, place, run_local,
                                            settle)
@@ -130,6 +131,11 @@ def _qkv(cfg: LMConfig, p: Dict, h: torch.Tensor, positions: torch.Tensor):
         inv, rot = _rope(cfg, h.device)
         q = apply_rope(q, positions, inv, rot)
         k = apply_rope(k, positions, inv, rot)
+    if cfg.attention_multiplier:
+        # the softmax scale is attention_multiplier, and the kernels scale
+        # by 1 / sqrt(head_dim): q takes the rest (exact in bf16 where it is
+        # a power of two, as Granite's 1/64 · 8 is)
+        q = q * (cfg.attention_multiplier * math.sqrt(cfg.resolved_head_dim))
     return q, k, v
 
 
@@ -165,10 +171,10 @@ def ffn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
     else:
         y, aux = mlp_fwd(p["mlp"], h, cfg.act, cfg.gated_mlp), None
     if not with_aux:
-        return x + y
+        return residual_add(cfg, x, y)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    return residual_add(cfg, x, y), aux
 
 
 def attn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
@@ -183,8 +189,8 @@ def attn_block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,
     q, k, v = _qkv(cfg, p["attn"], h, positions)
     o = attend(lambda qg, k, v: FlashAttentionFn.apply(
         qg, k, v, True, cfg.q_chunk, cfg.kv_chunk), q, k, v)
-    return x + lshard(_attn_out(p["attn"], o), "act_batch", "act_res_seq",
-                      "act_embed")
+    return residual_add(cfg, x, lshard(_attn_out(p["attn"], o), "act_batch",
+                                       "act_res_seq", "act_embed"))
 
 
 def block_fwd(cfg: LMConfig, p: Dict, x: torch.Tensor,

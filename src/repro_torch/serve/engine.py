@@ -101,6 +101,10 @@ class ServeReport:
     #: ``serve.fetch_wait``, ``serve.fetch``): ``{name: {"device_s",
     #: "host_s", "count", "steps"}}``; empty with telemetry off
     phases: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    #: the bytes of the largest cache one of the call's chunks held, by
+    #: kind: ``kv`` (attention's K/V), ``ssm_state`` (recurrent states),
+    #: ``conv`` (Mamba-2's conv windows)
+    cache_bytes: Dict[str, int] = field(default_factory=dict)
 
 
 @dataclass
@@ -197,6 +201,18 @@ class HeteroServeEngine:
         # executors are built once per (namespaced) group and reused
         # across epochs and scheduler rebuilds
         self._executors: Dict[str, TorchChunkExecutor] = {}
+        # bucket -> its chunk's cache bytes by kind
+        self._cache_sizes: Dict[int, Dict[str, int]] = {}
+
+    def cache_bytes(self, b: int) -> Dict[str, int]:
+        """The bytes by kind (``kv``, ``ssm_state``, ``conv``) of the cache
+        a chunk of bucket ``b`` holds, counted from the abstract cache once
+        a bucket (``M.cache_bytes``)."""
+        got = self._cache_sizes.get(b)
+        if got is None:
+            got = self._cache_sizes[b] = M.cache_bytes(self.cfg, b,
+                                                       self.max_len)
+        return got
 
     # ------------------------------------------------------------------
     def _fns_for(self, b: int,
@@ -273,6 +289,11 @@ class HeteroServeEngine:
                     raise ChunkFailure(f"group {g.name} injected failure")
             b = batch["tokens"].shape[0]
             prefill_fn, decode_fn = self._fns_for(b, ex)
+            if self.telemetry is not None:
+                # the chunk's cache by kind, on the trace
+                self.telemetry.tracer.instant(
+                    "serve.cache_bytes", f"{key or g.name}/cache",
+                    bucket=b, **self.cache_bytes(b))
             if g.slowdown > 1.0:
                 time.sleep((g.slowdown - 1.0) * 0.001 * b)
             # greedy decoding stays on the device: no token comes back to
@@ -365,6 +386,7 @@ class HeteroServeEngine:
         sched = self._build_scheduler(max_chunk=n_requests)
         res = sched.run(0, n_requests)
         tokens_out: Dict[int, np.ndarray] = {}
+        cache_bytes: Dict[str, int] = {}
         for rec in res.records:
             result = rec.meta.get("result")
             if result is None:
@@ -372,6 +394,8 @@ class HeteroServeEngine:
             c = rec.token.chunk
             for i in range(c.size):
                 tokens_out[c.begin + i] = result["tokens_out"][i]
+            for kind, n in self.cache_bytes(bucket(c.size)).items():
+                cache_bytes[kind] = max(cache_bytes.get(kind, 0), n)
         return ServeReport(
             requests=res.iterations,
             new_tokens=res.iterations * self.decode_tokens,
@@ -380,6 +404,7 @@ class HeteroServeEngine:
             overheads=res.overheads,
             throughput=res.throughput,
             tokens_out=tokens_out,
+            cache_bytes=cache_bytes,
             phases=phase_totals(p for rec in res.records
                                 if rec.token.is_accel
                                 for p in rec.meta.get("phases", ())))

@@ -11,7 +11,9 @@ engine.
   kept per (device, stream), so the graphs of two executors never share
   them. One eager warm-up on that stream comes first: it builds the
   kernels, sets their attributes, and allocates the tickets, the RoPE
-  table and cuBLAS's workspace outside the graphs' memory pool. A graph
+  table and cuBLAS's workspace outside the graphs' memory pool; the
+  blocks it leaves cached go back to the card before the capture, whose
+  private pool could not reuse them. A graph
   reads each of them at the address it had at capture, so they must live
   as long as the graph: the caches that hold the tickets
   (``flash_decode._counters``, one buffer per (device, stream, b * kv
@@ -175,6 +177,11 @@ class GraphedStep:
             M.decode_step(cfg, params, cache, self.token)
             del cache
         stream.synchronize()
+        # the capture takes about what the warm-up took, in a private pool
+        # that cannot use the blocks the warm-up left cached: they go back
+        # to the card first
+        with torch.cuda.device(stream.device):
+            torch.cuda.empty_cache()
         t1 = time.perf_counter()
         prefill = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream), uncounted(stream) as tally:

@@ -259,6 +259,10 @@ TOL_TEXT = f"tol |diff| <= {TOL} + {TOL} |plain|"   # as torch.allclose
 #: (repro/models/ssm.py:111-134) but sum in other orders, so a weight can
 #: round to the neighbouring bf16 value
 SSD_TOL = 2e-2
+#: the decode state step's tolerance, relative to max |y| and max |state|:
+#: kernel and plain version round every product and sum of the state alike
+#: in fp32 and differ only in the read-out's summation order
+S1_TOL = 1e-5
 
 
 def log(*parts):
@@ -367,6 +371,7 @@ def phase_occupancy(dev):
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssm_state_step as S1
     from repro_torch.kernels._checks import HEAD_DIMS
     occ = {}
     for d in HEAD_DIMS:
@@ -394,6 +399,12 @@ def phase_occupancy(dev):
         occ[f"ssd_scan P={P} N={N}"] = blocks
         log(f"ssd_scan occupancy P={P} N={N}: {blocks} resident blocks per "
             f"SM, {smem} bytes of dynamic shared memory per block")
+    for P, N in S1.SHAPES:
+        o = S1.occupancy(P, N, dev)
+        occ[f"ssm_state_step P={P} N={N}"] = o.blocks
+        log(f"ssm_state_step occupancy P={P} N={N}: {o.blocks} resident "
+            f"blocks of 256 threads per SM, {o.registers} registers, "
+            f"{o.local_bytes} bytes of local memory (spills) per thread")
     if min(occ.values()) < 1:
         raise AssertionError(f"an instantiation cannot launch: {occ}")
     return occ
@@ -533,6 +544,7 @@ def phase_kernels(dev):
             rows["flash_decode"].update(row)
     rows["flash_decode"]["max_abs_err"] = fd_err
     rows["ssd_scan"] = ssd_rows(dev, gen)
+    rows["ssm_state_step"] = ssm_step_rows(dev, gen)
     kernel_variants(dev, gen)
     return rows
 
@@ -669,6 +681,77 @@ def ssd_rows(dev, gen):
     return row
 
 
+def ssm_step_rows(dev, gen):
+    """S1, the decode state step, at granite-4.0-h-micro's decode shape
+    (``main``: b 128, 64 heads, P 64, N 128) and zamba2-1.2b's (``n64``:
+    N 64), then at N 128 with 2 groups (``grouped``): x, B and C
+    column slices of one bf16 conv output, the state a layer of a 5-D
+    cache. Against the plain version on a copy of the same state: the
+    state within ``S1_TOL`` of max |state| (and how many of its values
+    differ at all), y within ``S1_TOL`` of max |y| (the read-out sums in
+    another order). Times: graph replay and back to back, the plain
+    version, the bound (bytes / 3.35 TB/s), resident blocks, registers
+    and spills."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import ssm_state_step as S1
+    row, max_err, shapes = None, 0.0, {}
+    for name, b, g, N in [("main", 128, 1, 128), ("n64", 128, 1, 64),
+                          ("grouped", 128, 2, 128)]:
+        nh, P = 64, 64
+        conv = (torch.randn(b, nh * P + 2 * g * N, generator=gen,
+                            device=dev) * 0.5).to(torch.bfloat16)
+        x = conv[:, :nh * P].unflatten(-1, (nh, P))
+        B = conv[:, nh * P:nh * P + g * N].unflatten(-1, (g, N))
+        C = conv[:, nh * P + g * N:].unflatten(-1, (g, N))
+        dt = F.softplus(torch.randn(b, nh, generator=gen, device=dev) - 1)
+        A_log = torch.randn(nh, generator=gen, device=dev) * 0.5
+        D = torch.randn(nh, generator=gen, device=dev)
+        cache = torch.randn(2, b, nh, P, N, generator=gen, device=dev)
+        state, ref = cache[1], cache[1].clone()
+        args = (x, dt, A_log, B, C, D)
+        y = S1.ssm_state_step(state, *args)
+        ey = S1.ssm_state_step_plain(ref, *args)
+        torch.cuda.synchronize()
+        err_y = (y - ey).abs().max().item()
+        err_s = (state - ref).abs().max().item()
+        rel_y = err_y / ey.abs().max().item()
+        rel_s = err_s / ref.abs().max().item()
+        differing = int((state != ref).sum())
+        if not (rel_y <= S1_TOL and rel_s <= S1_TOL):
+            raise AssertionError(f"ssm_state_step {name}: max err y {err_y} "
+                                 f"({rel_y:.3e} of max), state {err_s} "
+                                 f"({rel_s:.3e} of max)")
+        max_err = max(max_err, err_y)
+        ms, b2b_ms = times(lambda: S1.ssm_state_step(state, *args), 50)
+        plain_ms = cuda_ms(lambda: S1.ssm_state_step_plain(ref, *args), 5)
+        nbytes = cost.ssm_state_step_bytes(b, nh, P, g, N)
+        flops = cost.ssm_state_step_flops(b, nh, P, N)
+        b_ms, b_by = bound(nbytes, flops)
+        occ = S1.occupancy(P, N, dev)
+        log(f"ssm_state_step {name}: b={b} nh={nh} P={P} N={N} g={g} "
+            f"max_abs_err y={err_y:.3e} ({rel_y:.3e} of max |y|) state="
+            f"{err_s:.3e} ({rel_s:.3e} of max |state|; {differing} of "
+            f"{state.numel()} values differ) (tol {S1_TOL} of max) "
+            f"ms={ms:.4f} (back to back {b2b_ms:.4f}) plain_ms="
+            f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+            f"{100 * b_ms / ms:.1f}% of the bound; {occ.blocks} blocks per "
+            f"SM, {occ.registers} registers, {occ.local_bytes} B spilled)")
+        shape = dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, blocks_per_sm=occ.blocks,
+                     registers=occ.registers, spill_bytes=occ.local_bytes,
+                     max_err_of_max=max(rel_y, rel_s),
+                     state_values_differing=differing)
+        if name == "main":
+            row = dict(shape, library_ms=None, library_back_to_back_ms=None)
+        else:
+            shapes[name] = shape
+    row["max_abs_err"] = max_err
+    row["shapes"] = shapes
+    return row
+
+
 class _PlainAttentionFn:
     """``FlashAttentionFn``'s plain version: autograd through the plain
     flash-attention, in the grouped layout, neither the kernel nor the
@@ -704,11 +787,12 @@ class plain_kernels:
         from repro_torch.kernels.flash_attention import flash_attention_plain
         from repro_torch.kernels.flash_decode import flash_decode_plain
         from repro_torch.kernels.ssd_scan import ssd_scan_plain
+        from repro_torch.kernels.ssm_state_step import ssm_state_step_plain
         from repro_torch.models import ssm, transformer
         self.ops, self.tfm, self.ssm = ops, transformer, ssm
         self.saved = (ops.attention_bshd, ops.decode_attention_bshd,
-                      ops.ssd_bshn, transformer.FlashAttentionFn,
-                      ssm.SSDScanFn)
+                      ops.ssd_bshn, ops.ssm_step_bhpn,
+                      transformer.FlashAttentionFn, ssm.SSDScanFn)
         transformer.FlashAttentionFn = _PlainAttentionFn
         ssm.SSDScanFn = _PlainSSDScanFn
         ops.attention_bshd = lambda q, k, v, n_heads, n_kv_heads, causal, \
@@ -719,11 +803,12 @@ class plain_kernels:
             n_kv_heads: flash_decode_plain(q, kc, vc, kv_len)
         ops.ssd_bshn = lambda x, dt, A, B, C, chunk, init_state: \
             ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
+        ops.ssm_step_bhpn = ssm_state_step_plain
         return self
 
     def __exit__(self, *exc):
         (self.ops.attention_bshd, self.ops.decode_attention_bshd,
-         self.ops.ssd_bshn, self.tfm.FlashAttentionFn,
+         self.ops.ssd_bshn, self.ops.ssm_step_bhpn, self.tfm.FlashAttentionFn,
          self.ssm.SSDScanFn) = self.saved
 
 
@@ -732,8 +817,10 @@ def _launches():
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssm_state_step as S1
     return {"flash_attention": FA.launches, "flash_attention_bwd": FB.launches,
-            "flash_decode": FD.launches, "ssd_scan": SSD.launches}
+            "flash_decode": FD.launches, "ssd_scan": SSD.launches,
+            "ssm_state_step": S1.launches}
 
 
 def _zero_launches():
@@ -741,7 +828,9 @@ def _zero_launches():
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssm_state_step as S1
     FA.launches = FB.launches = FD.launches = SSD.launches = 0
+    S1.launches = 0
 
 
 def _expect_graphs(eng, before, chunks, decode_tokens, what):
@@ -811,7 +900,7 @@ def phase_reference(dev, cfg, params):
     got, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
-                  "flash_decode": 8, "ssd_scan": 0}:
+                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     with plain_kernels():
         ref, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
@@ -1106,8 +1195,9 @@ def phase_reference_hybrid(dev, cfg, params):
     share of greedy tokens that agree with the fp32 run's."""
     (got, plain, ref), counts, (toks, plain_toks, ref_toks) = hybrid_runs(
         dev, cfg, params, 7)
+    # the 7 Mamba-2 blocks' state step in each of the 4 decode steps
     want = {"flash_attention": 1, "flash_attention_bwd": 0,
-            "flash_decode": 4, "ssd_scan": 7}
+            "flash_decode": 4, "ssd_scan": 7, "ssm_state_step": 28}
     if counts != want:
         raise AssertionError(f"hybrid reference check launches {counts}, "
                              f"expected {want}")
@@ -1180,7 +1270,7 @@ def phase_reference_moe(dev, cfg, params):
         got, toks = greedy_run(cfg2, params2, prompt, 128)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
-                  "flash_decode": 8, "ssd_scan": 0}:
+                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     if not torch.isfinite(got).all():
         raise AssertionError("non-finite logits through the kernels")
@@ -1408,7 +1498,7 @@ def _overlapped_batches(telemetry) -> int:
 def _expect_launches(counts, chunks, n_layers):
     want = {"flash_attention": chunks * n_layers, "flash_attention_bwd": 0,
             "flash_decode": chunks * n_layers * (JOB_DECODE - 1),
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssm_state_step": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want} "
                              f"for {chunks} chunks")
@@ -1633,7 +1723,7 @@ def _per_chunk(cfg):
     if cfg.family == "hybrid":
         apps = cfg.n_layers // cfg.hybrid.attn_every
         return ({"ssd_scan": cfg.n_layers, "flash_attention": apps},
-                {"flash_decode": apps})
+                {"flash_decode": apps, "ssm_state_step": cfg.n_layers})
     return {"flash_attention": cfg.n_layers}, {"flash_decode": cfg.n_layers}
 
 
@@ -2324,7 +2414,7 @@ def phase_train_hetero(dev):
     # kernels once each a layer
     if counts != {"flash_attention": accel_chunks * 2 * cfg.n_layers,
                   "flash_attention_bwd": accel_chunks * 2 * cfg.n_layers,
-                  "flash_decode": 0, "ssd_scan": 0}:
+                  "flash_decode": 0, "ssd_scan": 0, "ssm_state_step": 0}:
         raise AssertionError(f"kernel launches {counts} for {accel_chunks} "
                              f"accel chunks")
 
@@ -2729,7 +2819,7 @@ def bulk_reference(dev, cfg, params):
     got, toks = greedy_run(cfg2, params2, prompt, 1024)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
-                  "flash_decode": 8, "ssd_scan": 0}:
+                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0}:
         raise AssertionError(f"the b = 64 check's launches: {counts}")
     with no_tf32(), plain_kernels():
         plain, plain_toks = greedy_run(cfg2, params2, prompt, 1024, toks)
@@ -3141,7 +3231,7 @@ def main():
     counts["zamba2-1.2b"], _ = phase_main(
         dev, cfg, params,
         {"ssd_scan": cfg.n_layers, "flash_attention": n_apps},
-        {"flash_decode": n_apps})
+        {"flash_decode": n_apps, "ssm_state_step": cfg.n_layers})
     # head dim 96 with a 144-row patch-embedding prefix, then GQA 8:1 at
     # head dim 128
     for arch in ("phi-3-vision-4.2b", "yi-6b"):
@@ -3186,7 +3276,8 @@ def main():
     cfg, params = full_width_model(dev, "stablelm-1.6b")
     phase_train_reference(dev, cfg, params, first_blocks(2),
                           {"flash_attention": 4, "flash_attention_bwd": 4,
-                           "flash_decode": 0, "ssd_scan": 0})
+                           "flash_decode": 0, "ssd_scan": 0,
+                           "ssm_state_step": 0})
     counts["stablelm-1.6b training"], train_out = phase_train_main(
         dev, cfg, params, _dense_per_chunk(cfg))
     phase_train_ordering(dev, cfg, params)
@@ -3204,7 +3295,8 @@ def main():
     cfg, params = full_width_model(dev, "granite-moe-1b-a400m")
     phase_train_reference(dev, cfg, params, first_blocks(2),
                           {"flash_attention": 4, "flash_attention_bwd": 4,
-                           "flash_decode": 0, "ssd_scan": 0})
+                           "flash_decode": 0, "ssd_scan": 0,
+                           "ssm_state_step": 0})
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, _dense_per_chunk(cfg))
     phase_recompute_routing(dev, cfg, params)
@@ -3218,7 +3310,8 @@ def main():
     phase_train_reference(dev, cfg, params,
                           lambda c, p: hybrid_cut(c, p, 7),
                           {"flash_attention": 2, "flash_attention_bwd": 2,
-                           "flash_decode": 0, "ssd_scan": 2 * 6 + 1})
+                           "flash_decode": 0, "ssd_scan": 2 * 6 + 1,
+                           "ssm_state_step": 0})
     # remat per group: a group's Mamba-2 blocks and shared block run twice
     # a chunk (forward, recompute), the tail blocks once, as in the JAX
     # package (src/repro/models/hybrid.py:63-67)
@@ -3236,7 +3329,8 @@ def main():
     cfg, params = full_width_model(dev, "xlstm-350m")
     phase_train_reference(dev, cfg, params, first_pair,
                           {"flash_attention": 0, "flash_attention_bwd": 0,
-                           "flash_decode": 0, "ssd_scan": 0})
+                           "flash_decode": 0, "ssd_scan": 0,
+                           "ssm_state_step": 0})
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, {}, steps=XLSTM_TRAIN_STEPS,
         seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
@@ -3264,6 +3358,10 @@ def main():
                          "src/repro/kernels/flash_decode.py:62"),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:68"),
+        "ssm_state_step": (
+            "src/repro_torch/kernels/csrc/ssm_state_step.cu",
+            "none: src/repro/models/ssm.py:182 mamba2_decode_step is plain "
+            "JAX"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
-           "ssd_scan")
+           "ssd_scan", "ssm_state_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -98,6 +98,19 @@ def ssd_bytes(b: int, s: int, nh: int, P: int, g: int, N: int,
         + 4 * b * nh * P * N * (2 if init_state else 1)
 
 
+def ssm_state_step_flops(b: int, nh: int, P: int, N: int) -> int:
+    """S1: per state element s dA, (x dt) B, their sum and the read-out's
+    multiply-add; per row x dt, D x and its add."""
+    return b * nh * P * (5 * N + 3)
+
+
+def ssm_state_step_bytes(b: int, nh: int, P: int, g: int, N: int) -> int:
+    """S1: the fp32 state read and written; x, B, C read in bf16; dt read,
+    y written in fp32; A_log, D read."""
+    return 8 * b * nh * P * N + 2 * (b * nh * P + 2 * b * g * N) \
+        + 4 * (b * nh + b * nh * P + 2 * nh)
+
+
 @contextmanager
 def recording():
     """Collect the charges made in the block: {name: {"flops", "bytes",

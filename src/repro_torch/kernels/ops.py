@@ -10,6 +10,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssm_state_step import ssm_state_step
 
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,3 +48,13 @@ def ssd_bshn(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{x.shape[2]} heads are not a multiple of "
                          f"{B.shape[2]} groups")
     return ssd_scan(x, dt, A, B, C, chunk, init_state)
+
+
+def ssm_step_bhpn(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                  A_log: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  D: torch.Tensor) -> torch.Tensor:
+    """Model layout of one decode token: state (b, nh, p, n) fp32, updated
+    in place; x (b, nh, p); dt (b, nh); A_log, D (nh,); B/C (b, g, n) ->
+    y (b, nh, p) fp32. B/C are not repeated to every head: the kernel
+    reads group ``h // (nh / g)`` for head ``h``."""
+    return ssm_state_step(state, x, dt, A_log, B, C, D)

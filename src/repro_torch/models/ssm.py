@@ -10,6 +10,9 @@ differentiates the plain version, as the JAX package differentiates its
 ``ssd_scan``. ``mamba2_decode_step`` is a
 one-token recurrence (the JAX package has no kernel for it) and updates
 the state and the conv window in place, so no step synchronises the host.
+Its state step is ``ops.ssm_step_bhpn``: on CUDA the fused kernel of
+``repro_torch.kernels.ssm_state_step`` (one pass over the fp32 state), on
+the CPU its plain version.
 
 The xLSTM cells are plain torch, as they are plain JAX in the reference
 (no Pallas kernel): the mLSTM in the stabilised chunkwise-parallel form,
@@ -230,34 +233,33 @@ def mamba2_decode_step(cfg: LMConfig, p: Dict, x: torch.Tensor,
     xBC_new = zxbcdt[..., di:di + conv_dim]                  # (b, 1, ch)
     win = torch.cat([conv_buf, xBC_new], dim=1)              # (b, d_conv, ch)
     conv_out = torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"]
-    xh, Bg, Cg = _heads(cfg, F.silu(conv_out))
-    rep = nh // s_cfg.n_groups
-    Bh = Bg.float().repeat_interleave(rep, dim=1)            # (b, nh, n)
-    Ch = Cg.float().repeat_interleave(rep, dim=1)
-    xf = xh.float()                                          # (b, nh, hd)
+    xBC = F.silu(conv_out)
     dt = F.softplus(dtr[:, 0].float() + p["dt_bias"])        # (b, nh)
     # per device on its batch rows and heads under a mesh: DTensor plans
     # the einsum's redistributions slowly on the 2 x 16 x 16 mesh
     rows = ("cache_batch", "ssm_heads", None)
-    y = on_shards(_ssm_recurrence, (state, xf, dt, p["A_log"], Bh, Ch,
-                                    p["D"]),
-                  (rows + (None,), rows, rows[:2], ("ssm_heads",), rows,
-                   rows, ("ssm_heads",)), [rows])
+    # the state step (S1) reads x, B and C as views of the conv output in
+    # rows: the einsum leaves it channel-major (strides (1, b)), so one
+    # copy of its (b, conv_dim) values lays it out by row. B and C are
+    # gathered whole, since each head reads its group
+    xh, Bg, Cg = _heads(cfg, xBC.contiguous())
+    g = s_cfg.n_groups
+
+    def local(state, x, dt, A_log, B, C, D):
+        if g > 1 and x.shape[1] != nh:
+            raise NotImplementedError(
+                f"{g} B/C groups with the {nh} heads sharded")
+        return ops.ssm_step_bhpn(state, x, dt, A_log, B, C, D)
+
+    groups = ("cache_batch", None, None)
+    y = on_shards(local, (state, xh, dt, p["A_log"], Bg, Cg, p["D"]),
+                  (rows + (None,), rows, rows[:2], ("ssm_heads",), groups,
+                   groups, ("ssm_heads",)), [rows])
     y = y.reshape(b, 1, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = residual_add(cfg, x, y @ p["out_proj"])
     conv_buf.copy_(win[:, 1:])
     return out, state, conv_buf
-
-
-def _ssm_recurrence(state, xf, dt, A_log, Bh, Ch, D):
-    """One step of the SSD recurrence, ``state`` updated in place: the
-    readout y (b, nh, hd)."""
-    dA = torch.exp(dt * -torch.exp(A_log))
-    state.mul_(dA[..., None, None]).add_(
-        (xf * dt[..., None])[..., :, None] * Bh[:, :, None, :])
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
-    return y + D[:, None] * xf
 
 
 # ===========================================================================

@@ -34,6 +34,7 @@ from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.kernels import ssm_state_step as S1
 from repro_torch.launch import dryrun
 from repro_torch.models import ssm
 from repro_torch.models.layers import init_from_defs
@@ -121,6 +122,27 @@ def test_ssd_scan_meta_branch(init):
     assert got["ssd_scan"]["flops"] == _old_ssd_flops(b, s, nh, P, N, Q)
     assert cost.ssd_flops(3, 37, 8, 16, 8, 16) == _old_ssd_flops(
         3, 37, 8, 16, 8, 16)
+
+
+def test_ssm_state_step_meta_branch():
+    """The decode state step (S1) at granite's shape: an empty fp32 y,
+    no launch, one pass over the fp32 state and one multiply-add a state
+    element for the read-out charged."""
+    b, nh, P, g, N = 128, 64, 64, 1, 128
+    before = S1.launches
+    with cost.recording() as got:
+        y = S1.ssm_state_step(
+            _meta(b, nh, P, N, dtype=torch.float32), _meta(b, nh, P),
+            _meta(b, nh, dtype=torch.float32),
+            _meta(nh, dtype=torch.float32), _meta(b, g, N), _meta(b, g, N),
+            _meta(nh, dtype=torch.float32))
+    assert y.shape == (b, nh, P) and y.dtype == torch.float32 and y.is_meta
+    assert S1.launches == before
+    assert got["ssm_state_step"] == {
+        "flops": cost.ssm_state_step_flops(b, nh, P, N),
+        "bytes": cost.ssm_state_step_bytes(b, nh, P, g, N), "calls": 1}
+    assert got["ssm_state_step"]["bytes"] > 8 * b * nh * P * N
+    assert got["ssm_state_step"]["flops"] > 2 * 2 * b * nh * P * N
 
 
 def test_attention_backward_charge_is_the_blocked_loops():

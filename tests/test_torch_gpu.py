@@ -16,7 +16,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_attention_bwd as FB
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import launch_count
 from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.kernels import ssm_state_step as S1
 
 
 @pytest.mark.gpu
@@ -198,6 +200,158 @@ def test_ssd_scan_kernel_matches_plain():
         for got, exp in ((y.float(), ey.float()), (state, estate)):
             err = (got - exp).abs().max().item()
             assert err <= 2e-2 * exp.abs().max().item(), (b, s, g, err)
+
+
+def _state_step_case(dev, b, nh, P, N, g, seed):
+    """A decode state step's inputs as the model passes them, but wider:
+    x, B and C column slices of a bf16 conv output with 8 columns more
+    (NaN) than they take; the state fp32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    conv = (rnd(b, nh * P + 2 * g * N + 8) * 0.5).to(torch.bfloat16)
+    conv[:, -8:] = float("nan")
+    x = conv[:, :nh * P].unflatten(-1, (nh, P))
+    B = conv[:, nh * P:nh * P + g * N].unflatten(-1, (g, N))
+    C = conv[:, nh * P + g * N:nh * P + 2 * g * N].unflatten(-1, (g, N))
+    dt = F.softplus(rnd(b, nh) - 1)
+    return x, dt, rnd(nh) * 0.5, B, C, rnd(nh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N,g", [(64, 128, 1), (64, 64, 1), (64, 128, 2),
+                                   (16, 8, 1)])
+@pytest.mark.parametrize("layout", ["layers_first", "batch_first"])
+def test_ssm_state_step_kernel_matches_plain_in_place(P, N, g, layout):
+    """Every instantiated (P, N) and 2 groups at N 128, on x, B and C
+    views that are not contiguous (``_state_step_case``) and a state that
+    is a layer of a 5-D cache: (layers, b, nh, P, N)[1], as the models
+    keep it, or (b, layers, nh, P, N)[:, 1], strided in b. The kernel
+    updates that layer in place and leaves the others' bits alone; the
+    state is within 1e-6 of max |state| of the plain version's (the same
+    fp32 roundings), y within 1e-5 of max |y| (the read-out sums in
+    another order). One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    b, nh = 6, 8
+    args = _state_step_case(dev, b, nh, P, N, g, seed=P + N + g)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    if layout == "layers_first":
+        cache = torch.randn(3, b, nh, P, N, generator=gen, device=dev)
+        state = cache[1]
+    else:
+        cache = torch.randn(b, 3, nh, P, N, generator=gen, device=dev)
+        state = cache[:, 1]
+    before, start = cache.clone(), state.clone()
+    launches = S1.launches
+    y = S1.ssm_state_step(state, *args)
+    torch.cuda.synchronize()
+    assert S1.launches == launches + 1
+    want_state = start.clone()
+    want = S1.ssm_state_step_plain(want_state, *args)
+    assert y.shape == (b, nh, P) and y.dtype == torch.float32
+    assert bool(torch.isfinite(y).all())
+    assert not torch.equal(state, start)
+    err_s = (state - want_state).abs().max().item()
+    assert err_s <= 1e-6 * want_state.abs().max().item(), err_s
+    err_y = (y - want).abs().max().item()
+    assert err_y <= 1e-5 * want.abs().max().item(), err_y
+    others = torch.ones(cache.shape[:2], dtype=torch.bool)
+    others[(1, slice(None)) if layout == "layers_first"
+           else (slice(None), 1)] = False
+    assert torch.equal(cache[others], before[others])
+
+
+@pytest.mark.gpu
+def test_ssm_state_step_graph_replay_repeats_eager_bits():
+    """The wrapper captured in a CUDA graph (it allocates only y, launches
+    on the current stream, never synchronises): each replay gives the
+    bits of an eager call on the same state, and adds the capture's one
+    launch to the count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    args = _state_step_case(dev, 16, 64, 64, 128, 1, seed=3)
+    state = torch.randn(16, 64, 64, 128, device=dev)
+    eager_state = state.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        S1.ssm_state_step(state.clone(), *args)      # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with launch_count.uncounted() as tally:
+        with torch.cuda.graph(graph):
+            y = S1.ssm_state_step(state, *args)
+    assert tally == {"ssm_state_step": 1}
+    counted = launch_count.CountedGraph(graph, tally)
+    launches = S1.launches
+    for _ in range(3):
+        counted.replay()
+        want = S1.ssm_state_step(eager_state, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want) and torch.equal(state, eager_state)
+    assert S1.launches == launches + 6
+
+
+@pytest.mark.gpu
+def test_granite_engine_launches_the_state_step_in_every_mamba_layer():
+    """granite-4.0-h-micro at full width (36 Mamba-2 layers) served
+    through the engine's CUDA graphs, 8 requests in chunks of 4: the state
+    step launches 36 x (decode_tokens - 1) times a chunk, K3 36 times a
+    chunk, and no capture fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import DeviceKind
+    from repro_torch.models.granite_hybrid import layout
+    from repro_torch.serve.engine import GroupDef, HeteroServeEngine
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-4.0-h-micro")
+    n_mamba = sum(kind == "mamba" for kind, _ in layout(cfg))
+    assert n_mamba == 36
+    decode_tokens = 4
+    eng = HeteroServeEngine(
+        cfg, [GroupDef("accel", DeviceKind.ACCEL, device=dev, fixed_chunk=4,
+                       async_depth=2)],
+        prompt_len=32, decode_tokens=decode_tokens, seed=0)
+    before = (S1.launches, SSD.launches)
+    rep = eng.serve(8)
+    after = (S1.launches - before[0], SSD.launches - before[1])
+    counts = eng.graph_counts.snapshot()
+    chunks = rep.overheads["accel"]["n_chunks"]
+    assert chunks == 2 and sorted(rep.tokens_out) == list(range(8))
+    assert counts["captures"] == 1 and counts["failures"] == 0
+    assert counts["replays"] == chunks * decode_tokens
+    assert after == (n_mamba * (decode_tokens - 1) * chunks,
+                     n_mamba * chunks)
+    del eng
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["N 32", "x float32", "state bfloat16"])
+def test_ssm_state_step_refuses_on_the_card(what):
+    """On CUDA tensors the wrapper raises on a state size it has no
+    instantiation for and on dtypes it does not take: there is no
+    fallback, and nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    N = 32 if what == "N 32" else 128
+    x, dt, A_log, B, C, D = _state_step_case(dev, 2, 4, 64, N, 1, seed=5)
+    state = torch.zeros(2, 4, 64, N, device=dev)
+    if what == "x float32":
+        x = x.float()
+    elif what == "state bfloat16":
+        state = state.to(torch.bfloat16)
+    launches = S1.launches
+    with pytest.raises((ValueError, TypeError)):
+        S1.ssm_state_step(state, x, dt, A_log, B, C, D)
+    assert S1.launches == launches
 
 
 @pytest.mark.gpu

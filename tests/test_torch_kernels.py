@@ -25,8 +25,10 @@ from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.kernels import ssm_state_step as S1
 from repro_torch.kernels._checks import check_attention_sizes
 from repro_torch.models import attention as tattn
+from repro_torch.models import ssm as tssm
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -401,14 +403,186 @@ def test_flash_attention_grid_limits(b, sq, skv, h, q_offset, ok):
 
 
 # ---------------------------------------------------------------------------
+# the Mamba-2 decode state step (S1)
+# ---------------------------------------------------------------------------
+
+def _state_step_inputs(b, nh, P, N, g, seed=17):
+    """A step's inputs as the model makes them: x, B and C column slices
+    of one bf16 conv output, dt after the softplus."""
+    gen = torch.Generator().manual_seed(seed)
+    conv = torch.randn(b, nh * P + 2 * g * N, generator=gen) \
+        .to(torch.bfloat16)
+    x = conv[:, :nh * P].unflatten(-1, (nh, P))
+    B = conv[:, nh * P:nh * P + g * N].unflatten(-1, (g, N))
+    C = conv[:, nh * P + g * N:].unflatten(-1, (g, N))
+    dt = torch.nn.functional.softplus(torch.randn(b, nh, generator=gen))
+    A_log = torch.randn(nh, generator=gen) * 0.5
+    D = torch.randn(nh, generator=gen)
+    state = torch.randn(b, nh, P, N, generator=gen)
+    return state, x, dt, A_log, B, C, D
+
+
+def _ssm_recurrence(state, xf, dt, A_log, Bh, Ch, D):
+    """The eager chain ``mamba2_decode_step`` ran before the kernel, as it
+    stood in ``models.ssm``: ``state`` updated in place, the read-out y."""
+    dA = torch.exp(dt * -torch.exp(A_log))
+    state.mul_(dA[..., None, None]).add_(
+        (xf * dt[..., None])[..., :, None] * Bh[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y + D[:, None] * xf
+
+
+@pytest.mark.parametrize("P,N", [(64, 64), (64, 128)])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssm_state_step_plain_matches_ssm_recurrence(P, N, g):
+    """The kernel's plain version, on x, B and C as the conv output's bf16
+    views, is the eager chain it replaced on their fp32 copies with B and
+    C repeated to every head, bit for bit: state and read-out. On CPU
+    tensors the wrapper computes it and counts no launch."""
+    state, x, dt, A_log, B, C, D = _state_step_inputs(3, 4, P, N, g)
+    rep = 4 // g
+    want_state = state.clone()
+    want = _ssm_recurrence(
+        want_state, x.float(), dt, A_log,
+        B.float().repeat_interleave(rep, dim=1),
+        C.float().repeat_interleave(rep, dim=1), D)
+    got_state = state.clone()
+    got = S1.ssm_state_step_plain(got_state, x, dt, A_log, B, C, D)
+    assert torch.equal(got, want) and torch.equal(got_state, want_state)
+    assert not torch.equal(got_state, state)
+    before = S1.launches
+    again_state = state.clone()
+    again = ops.ssm_step_bhpn(again_state, x, dt, A_log, B, C, D)
+    assert S1.launches == before
+    assert torch.equal(again, want) and torch.equal(again_state, want_state)
+
+
+def test_mamba2_decode_step_routes_cuda_tensors_to_the_kernel(monkeypatch):
+    """On every device the decode step hands the state step
+    (``ops.ssm_step_bhpn``, which launches the kernel for CUDA tensors)
+    the conv output's bf16 views (x (b, nh, P), B and C (b, g, N), not
+    repeated, each row contiguous) and the cache's state itself, and
+    takes its read-out as the step's: the output, state and conv window
+    of the unpatched step."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import model as TM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.granite_hybrid import layout
+    cfg = get_reduced_config("granite-4.0-h-micro")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(3),
+                            torch.device("cpu"))
+    kind, i = next((k, i) for k, i in layout(cfg) if k == "mamba")
+    p = tfm.layer_params(params[kind], i)["mixer"]
+    di, nh, conv_dim = tssm.mamba2_dims(cfg)
+    s = cfg.ssm
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 1, cfg.d_model, generator=gen).to(torch.bfloat16)
+    state = torch.randn(2, nh, s.head_dim, s.d_state, generator=gen)
+    conv = torch.randn(2, s.d_conv - 1, conv_dim, generator=gen) \
+        .to(torch.bfloat16)
+    want_state, want_conv = state.clone(), conv.clone()
+    want, _, _ = tssm.mamba2_decode_step(cfg, p, x, want_state, want_conv)
+    seen = []
+
+    def fake_step(st, xh, dt, A_log, B, C, D):
+        seen.append((st.data_ptr(), xh.dtype, tuple(xh.shape),
+                     tuple(B.shape), tuple(C.shape), xh.is_contiguous(),
+                     (xh.stride(-1), B.stride(-1), C.stride(-1))))
+        return S1.ssm_state_step_plain(st, xh, dt, A_log, B, C, D)
+
+    monkeypatch.setattr(tssm.ops, "ssm_step_bhpn", fake_step)
+    got_state, got_conv = state.clone(), conv.clone()
+    got, st, cb = tssm.mamba2_decode_step(cfg, p, x, got_state, got_conv)
+    monkeypatch.undo()
+    assert seen == [(got_state.data_ptr(), torch.bfloat16,
+                     (2, nh, s.head_dim), (2, s.n_groups, s.d_state),
+                     (2, s.n_groups, s.d_state), False, (1, 1, 1))]
+    assert st is got_state and cb is got_conv
+    assert torch.equal(got, want) and torch.equal(got_state, want_state) \
+        and torch.equal(got_conv, want_conv)
+
+
+def _meta32(*shape):
+    return torch.empty(*shape, dtype=torch.float32, device="meta")
+
+
+@pytest.mark.parametrize("change,error,match", [
+    ({"state": _meta32(2, 4, 64, 32), "B": _meta(2, 1, 32),
+      "C": _meta(2, 1, 32)}, ValueError, r"\(P, N\) = \(64, 32\)"),
+    ({"state": _meta32(2, 4, 32, 128), "x": _meta(2, 4, 32)}, ValueError,
+     r"\(P, N\) = \(32, 128\)"),
+    ({"x": _meta32(2, 4, 64)}, TypeError, "takes bfloat16"),
+    ({"B": _meta(2, 1, 128, dtype=torch.float16)}, TypeError,
+     "takes bfloat16"),
+    ({"state": _meta(2, 4, 64, 128)}, ValueError, "state: needs float32"),
+    ({"state": _meta32(2, 4, 128, 64).transpose(2, 3)}, ValueError,
+     "contiguous \\(P, N\\) tile"),
+    ({"state": _meta32(2, 6, 64, 128)}, ValueError, "does not match"),
+    ({"state": _meta32(2, 4, 64, 128).as_strided((2, 4, 64, 128),
+                                                 (32770, 8192, 128, 1))},
+     ValueError, "multiples of 4"),
+    ({"state": _meta32(2, 4, 64, 130)[..., :128]}, ValueError,
+     "contiguous \\(P, N\\) tile"),
+    ({"x": _meta(2, 4, 128)[..., ::2]}, ValueError, "contiguous head"),
+    ({"B": _meta(2, 1, 132)[..., :128]}, ValueError, "multiples of 8"),
+    ({"B": _meta(2, 3, 128), "C": _meta(2, 3, 128)}, ValueError,
+     "does not match"),
+    ({"C": _meta(2, 1, 64)}, ValueError, "expected state"),
+    ({"dt": _meta32(2, 4, 1)}, ValueError, "dt must be"),
+    ({"dt": _meta(2, 4)}, ValueError, "dt must be"),
+    ({"A_log": _meta32(8)}, ValueError, "A_log must be"),
+    ({"D": _meta32(4, 2)[:, 0]}, ValueError, "contiguous"),
+    ({"dt": torch.empty(2, 4)}, ValueError, "dt must be"),
+    ({}, ValueError, "runs on CUDA or the CPU"),
+])
+def test_ssm_state_step_refuses_what_the_kernel_does_not_take(
+        change, error, match):
+    """Off the CPU (meta tensors stand in for CUDA ones) the wrapper
+    checks (P, N), dtypes, shapes and strides before it looks for a card,
+    and raises on each with its reason: nothing falls back."""
+    args = dict(state=_meta32(2, 4, 64, 128), x=_meta(2, 4, 64),
+                dt=_meta32(2, 4), A_log=_meta32(4), B=_meta(2, 1, 128),
+                C=_meta(2, 1, 128), D=_meta32(4))
+    args.update(change)
+    with pytest.raises(error, match=match):
+        S1.ssm_state_step(**args)
+
+
+def test_ssm_state_step_kernel_name_escapes_the_benchmarks_patterns():
+    """The kernel's ``__global__``, as the profiler names it, matches none
+    of the benchmark's kernel patterns (the K1, K2 and K3 rooflines count
+    launches by them)."""
+    import re
+    from pathlib import Path
+
+    from gpubench.cost import kernel_of
+    src = (Path(S1.__file__).with_name("csrc")
+           / "ssm_state_step.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)", src)
+    assert names == ["ssm_state_step_kernel"]
+    for shown in (names[0], f"void (anonymous namespace)::{names[0]}<64, "
+                            f"128>(float*, __nv_bfloat16 const*, float "
+                            f"const*, float const*, __nv_bfloat16 const*, "
+                            f"__nv_bfloat16 const*, float const*, float*, "
+                            f"long long, int, int)"):
+        assert kernel_of(shown) is None, shown
+
+
+# ---------------------------------------------------------------------------
 # launch counts and the card
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_never_count_a_launch():
-    fa0, fd0, ssd0 = FA.launches, FD.launches, SSD.launches
+    fa0, fd0, ssd0, s10 = FA.launches, FD.launches, SSD.launches, \
+        S1.launches
     q = torch.zeros(1, 8, 2, 16)
     FA.flash_attention(q, q, q)
     FD.flash_decode(q[:, :1], q, q, torch.tensor([8], dtype=torch.int32))
     SSD.ssd_scan(q, q[..., 0], -torch.ones(2), q[:, :, :1, :8],
                  q[:, :, :1, :8], 8)
-    assert (FA.launches, FD.launches, SSD.launches) == (fa0, fd0, ssd0)
+    S1.ssm_state_step(torch.zeros(1, 2, 16, 8), q[:, 0], q[:, 0, :, 0],
+                      torch.zeros(2), q[:, :1, 0, :8], q[:, :1, 0, :8],
+                      torch.ones(2))
+    assert (FA.launches, FD.launches, SSD.launches, S1.launches) \
+        == (fa0, fd0, ssd0, s10)

@@ -17,8 +17,9 @@ runtimes' dispatcher threads sharing one interpreter, the wall time per
 decode step says whether N runtimes overlap their host work (it falls
 with N) or serialize it (it stays or grows). Then 8 jobs without tenants
 at the fewest and the most runtimes under ``torch.profiler``: device
-busy seconds and idle share (as ``profile_serve_torch.py`` computes
-them), kernel launches and the host seconds spent in the launch calls.
+busy seconds and idle share, kernel launches and the host seconds spent
+in the launch calls (``profile_serve_torch.py``'s ``device_report``, by
+``gpubench/trace.py``).
 The profiler adds host time per operator, so its idle shares are upper
 bounds. Exits non-zero without a CUDA device.
 """
@@ -47,8 +48,7 @@ def main():
         raise SystemExit("federation_scaling: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "scripts"))
-    from profile_serve_torch import _union_us
-    from torch.autograd import DeviceType
+    from profile_serve_torch import device_report
     from repro_torch import telemetry as telemetry_mod
     from repro_torch.configs.registry import get_config
     from repro_torch.core.types import DeviceKind
@@ -109,19 +109,13 @@ def main():
     for n in sorted({min(counts), max(counts)}):
         with torch.profiler.profile(activities=acts) as prof:
             out = run(n, None, n_jobs=8)    # a short run: a trace per launch
-        events = prof.events()
-        spans = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == DeviceType.CUDA]
-        launches = [e for e in events if e.device_type == DeviceType.CPU
-                    and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                   "cudaLaunchKernelExC",
-                                   "cuLaunchKernelEx")]
-        busy_s = _union_us(spans) / 1e6
-        host_s = sum(e.cpu_time_total for e in launches) / 1e6
-        out.update(profiled=True, device_busy_s=busy_s,
-                   idle_share_of_wall=1.0 - busy_s / out["wall_s"],
-                   kernel_launches=len(launches), host_launch_s=host_s,
-                   host_us_per_launch=1e6 * host_s / max(len(launches), 1))
+        dev = device_report(prof, out["wall_s"])
+        out.update(profiled=True, device_busy_s=dev["device_busy_s"],
+                   idle_share_of_wall=dev["idle_share_of_profiled_wall"],
+                   kernel_launches=dev["kernel_launches"],
+                   host_launch_s=dev["host_launch_s"],
+                   host_us_per_launch=1e6 * dev["host_launch_s"]
+                   / max(dev["kernel_launches"], 1))
         print(json.dumps(out), flush=True)
 
 

@@ -13,17 +13,21 @@ requests (2 chunks) twice: once bare, for the wall time, and once under
 
 - the graphs' captures and replays, and the capture's seconds;
 - the bare and the profiled wall time of the 16 requests;
-- device busy time (the union of all GPU kernel and copy intervals) and
-  the idle share of the profiled window;
-- GPU time per kernel name, the largest first;
-- the number of kernel launches and of graph launches, and the host time
-  spent in them;
+- the profiled window reduced by ``gpubench/trace.py`` (``device_report``):
+  device busy time (the union of all GPU kernel and copy intervals) and
+  the idle share of the profiled wall and of the device's first to last
+  event, the ten longest device operations, the hand-written kernels'
+  launches and seconds, the longest idle gaps by what the host was doing,
+  and the number of kernel launches and of graph launches with the host
+  time spent in them;
 - the split of one chunk (8 prompts), eager (``M.prefill`` /
   ``M.decode_step``) and through the executor's graphs: the wall time of
   its prefill and of its 15 decode steps, each ended by a synchronise.
 
 The profiler adds host time per operator, so the profiled idle share is an
-upper bound of the bare run's. Exits non-zero without a CUDA device.
+upper bound of the bare run's. Exits non-zero without a CUDA device. For
+the benchmark's cells, ``python3 gpubench/run.py --workload <cell> --seed 0
+--seconds 40 --trace 1`` reports the same reduction as per-layer metrics.
 """
 from __future__ import annotations
 
@@ -31,25 +35,47 @@ import argparse
 import json
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
-def _union_us(intervals):
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def device_report(prof, wall_s):
+    """The profiled window of ``prof`` (a finished ``torch.profiler``
+    run), from its device's first event to its last, reduced by
+    ``gpubench/trace.py``; ``wall_s`` is the window's wall time."""
+    from gpubench.trace import _events, reduce
+    events = _events(prof)
+    dev = [(s, e) for d, _, s, e in events if d]
+    if not dev:
+        raise SystemExit("the profiler saw no device event")
+    summary = reduce(events, min(s for s, _ in dev), max(e for _, e in dev))
+
+    def host(names):
+        return [e - s for d, n, s, e in events if not d and n in names]
+
+    launches, graphs = host(LAUNCH_CALLS), host(GRAPH_LAUNCH_CALLS)
+    return {
+        "device_busy_s": summary.busy_s, "gpu_window_s": summary.window_s,
+        "idle_share_of_profiled_wall": 1.0 - summary.busy_s / wall_s,
+        "idle_share_of_gpu_window": summary.idle_share,
+        "kernel_launches": len(launches), "host_launch_s": sum(launches),
+        "graph_launches": len(graphs), "host_graph_launch_s": sum(graphs),
+        "hand_written_kernels": {k: {"launches": len(v), "gpu_s": sum(v)}
+                                 for k, v in summary.kernels.items()},
+        "gpu_time_by_op": [{"name": n[:90], "gpu_s": t}
+                           for n, t in summary.device_ops],
+        "idle_gaps": [{"host_event": n[:90], "s": t}
+                      for n, t in summary.idle_gaps]}
 
 
 def main():
@@ -58,8 +84,6 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve_torch: no CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
-    from torch.autograd import DeviceType
     from repro_torch.configs.registry import get_config
     from repro_torch.core.types import DeviceKind
     from repro_torch.models import model as M
@@ -89,21 +113,6 @@ def main():
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
 
-    events = prof.events()
-    gpu = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in gpu]
-    busy_us = _union_us(spans)
-    window_us = (max(e for _, e in spans) - min(s for s, _ in spans)) \
-        if spans else 0.0
-    per_kernel = defaultdict(lambda: [0, 0.0])
-    for e in gpu:
-        per_kernel[e.name][0] += 1
-        per_kernel[e.name][1] += e.time_range.end - e.time_range.start
-    launches = [e for e in events if e.device_type == DeviceType.CPU
-                and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                               "cudaLaunchKernelExC", "cuLaunchKernelEx")]
-    graph_launches = [e for e in events if e.device_type == DeviceType.CPU
-                      and e.name in ("cudaGraphLaunch", "cuGraphLaunch")]
     counts = eng.graph_counts.snapshot()
     print(json.dumps({"graphs": {k: counts[k] for k in
                                  ("captures", "replays", "failures",
@@ -115,21 +124,7 @@ def main():
         "bare_tok_per_s": bare.new_tokens / bare_s,
         "bare_accel_overheads": bare.overheads["accel"],
         "profiled_wall_s": prof_s}))
-    print(json.dumps({
-        "gpu_events": len(gpu), "device_busy_s": busy_us / 1e6,
-        "gpu_window_s": window_us / 1e6,
-        "idle_share_of_profiled_wall": 1.0 - busy_us / 1e6 / prof_s,
-        "idle_share_of_gpu_window": (1.0 - busy_us / window_us)
-        if window_us else None,
-        "kernel_launches": len(launches),
-        "host_launch_s": sum(e.cpu_time_total for e in launches) / 1e6,
-        "graph_launches": len(graph_launches),
-        "host_graph_launch_s": sum(e.cpu_time_total
-                                   for e in graph_launches) / 1e6}))
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]
-    print(json.dumps({"gpu_time_by_kernel": [
-        {"name": name[:90], "calls": n, "gpu_s": us / 1e6}
-        for name, (n, us) in top]}))
+    print(json.dumps(device_report(prof, prof_s)))
 
     tokens = torch.from_numpy(
         np.stack([eng._prompt(i) for i in range(8)])).to(dev)

@@ -16,16 +16,19 @@ one step bare for the wall time, and one step under ``torch.profiler``
 with CPU and CUDA activities. Prints, as JSON lines per run:
 
 - the bare and the profiled step's wall time, and trained tokens/s;
-- device busy time (the union of all GPU kernel and copy intervals) and
-  the idle share of the profiled window;
-- the number of kernel launches and of graph launches on the host, and
-  the host time spent in them;
-- GPU time per kernel name, the largest first;
+- the profiled window reduced by ``gpubench/trace.py`` (as
+  ``profile_serve_torch.py``'s ``device_report``): device busy time and
+  idle share, the longest device operations and idle gaps, the
+  hand-written kernels' launches and seconds, and the kernel and graph
+  launches on the host with the host time spent in them;
 - the graphed run's captures, replays and each capture's seconds and
   pool bytes.
 
 The profiler adds host time per operator, so the profiled idle share is an
-upper bound of the bare run's. Exits non-zero without a CUDA device.
+upper bound of the bare run's. Exits non-zero without a CUDA device. For
+the benchmark's training cell, ``python3 gpubench/run.py --workload
+stablelm-1.6b.train --seed 0 --seconds 40 --trace 1`` reports the same
+reduction as per-layer metrics.
 """
 from __future__ import annotations
 
@@ -34,7 +37,6 @@ import gc
 import json
 import sys
 import time
-from collections import defaultdict
 from functools import partial
 from pathlib import Path
 
@@ -43,20 +45,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _union_us(intervals):
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def _profile(run_step):
-    """(profiled wall s, the profiler's events)."""
+    """(profiled wall s, the finished profiler)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -64,40 +54,7 @@ def _profile(run_step):
         run_step()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    return prof_s, prof.events()
-
-
-def _device_report(prof_s, events):
-    from torch.autograd import DeviceType
-    gpu = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in gpu]
-    busy_us = _union_us(spans)
-    window_us = (max(e for _, e in spans) - min(s for s, _ in spans)) \
-        if spans else 0.0
-    per_kernel = defaultdict(lambda: [0, 0.0])
-    for e in gpu:
-        per_kernel[e.name][0] += 1
-        per_kernel[e.name][1] += e.time_range.end - e.time_range.start
-    launches = [e for e in events if e.device_type == DeviceType.CPU
-                and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                               "cudaLaunchKernelExC", "cuLaunchKernelEx")]
-    graph_launches = [e for e in events if e.device_type == DeviceType.CPU
-                      and e.name in ("cudaGraphLaunch", "cuGraphLaunch")]
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    return {
-        "profiled_wall_s": prof_s, "gpu_events": len(gpu),
-        "device_busy_s": busy_us / 1e6, "gpu_window_s": window_us / 1e6,
-        "idle_share_of_profiled_wall": 1.0 - busy_us / 1e6 / prof_s,
-        "idle_share_of_gpu_window": (1.0 - busy_us / window_us)
-        if window_us else None,
-        "kernel_launches": len(launches),
-        "host_launch_s": sum(e.cpu_time_total for e in launches) / 1e6,
-        "graph_launches": len(graph_launches),
-        "host_graph_launch_s": sum(e.cpu_time_total
-                                   for e in graph_launches) / 1e6,
-        "gpu_time_by_kernel": [{"name": name[:90], "calls": n,
-                                "gpu_s": us / 1e6}
-                               for name, (n, us) in top]}
+    return prof_s, prof
 
 
 def main():
@@ -109,6 +66,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_torch: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_serve_torch import device_report
     from repro_torch.configs.registry import get_config
     from repro_torch.core.types import DeviceKind
     from repro_torch.models import model as M
@@ -139,7 +98,7 @@ def main():
         tr.train_step()
         torch.cuda.synchronize()
         bare_s = time.perf_counter() - t0
-        prof_s, events = _profile(tr.train_step)
+        prof_s, prof = _profile(tr.train_step)
         snap = tr.graph_counts.snapshot()
         print(json.dumps({
             "arch": cfg.arch_id, "mode": mode,
@@ -149,8 +108,8 @@ def main():
             "bare_tok_per_s": args.batch * args.seq / bare_s,
             "graphs": {k: snap[k] for k in ("captures", "replays",
                                             "failures", "capture_log")},
-            **_device_report(prof_s, events)}))
-        del tr, events
+            "profiled_wall_s": prof_s, **device_report(prof, prof_s)}))
+        del tr, prof
         gc.collect()            # the executors' closures hold the trainer
         torch.cuda.empty_cache()
 

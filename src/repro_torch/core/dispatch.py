@@ -13,6 +13,10 @@ reproduces the paper's baseline Dynamic (synchronous clFinish()).
 
 `priority_boost` is the literal paper optimization: raise the host/dispatch
 thread's OS priority (best-effort `os.nice`; needs privileges to raise).
+
+A device group of the serving engine or of the trainer (`GroupDef`) runs
+on one torch device (`group_devices`) through a `TorchChunkExecutor`; its
+chunks are padded to a power-of-two batch bucket (`bucket`).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import (Any, Callable, Deque, Dict, List, NamedTuple, Optional,
 
 import torch
 
-from repro_torch.core.types import Chunk, ChunkRecord, Token
+from repro_torch.core.types import Chunk, ChunkRecord, DeviceKind, Token
 
 clock = time.monotonic
 
@@ -225,6 +229,58 @@ def phase_totals(phases, into: Optional[Dict[str, Dict[str, float]]] = None) \
         t["count"] += 1
         t["steps"] += p.steps
     return out
+
+
+def bucket(n: int) -> int:
+    """The batch bucket of a chunk of ``n`` rows: the next power of two."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclass
+class GroupDef:
+    """A device group of the serving engine or of the trainer."""
+    name: str
+    kind: DeviceKind
+    device: Optional[object] = None   # torch.device / str; None = cuda:0
+    fixed_chunk: Optional[int] = None
+    async_depth: int = 1
+    priority_boost: bool = False
+    slowdown: float = 1.0          # artificial slowdown for straggler tests
+    fail_after_chunks: Optional[int] = None   # fault injection
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card (``cuda:0``); with no CUDA device that
+    raises instead of falling back to the CPU. The CPU is used only when
+    asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA GPU is available; pass device='cpu' to run on the "
+                "CPU")
+        return torch.device("cuda", 0)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    return device
+
+
+def group_devices(cfg, groups: List[GroupDef],
+                  verb: str) -> Dict[str, torch.device]:
+    """Each group's device (``resolve_device``) by name. The CUDA kernels
+    take bfloat16, so a config of another dtype with a CUDA group is
+    refused, before any weight is placed; the message tells the caller to
+    ``verb`` it on the CPU."""
+    devices = {g.name: resolve_device(g.device) for g in groups}
+    cuda = sorted(n for n, d in devices.items() if d.type == "cuda")
+    if cuda and cfg.activation_dtype != torch.bfloat16:
+        raise ValueError(
+            f"{cfg.arch_id} in {cfg.dtype} on CUDA (groups {cuda}): the "
+            f"CUDA kernels take bfloat16; {verb} {cfg.dtype} on the CPU")
+    return devices
 
 
 class TorchChunkExecutor(ChunkExecutor):

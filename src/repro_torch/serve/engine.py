@@ -21,7 +21,8 @@ Each executor has its own CUDA stream.
 ``_fns_for(b)`` is the JAX engine's per-bucket ``jax.jit`` of ``prefill``
 and ``decode_step``. On a CUDA group its functions replay CUDA graphs
 captured once per (executor, bucket) on the executor's stream
-(``serve.graphs``); ``graph_counts`` counts the captures, replays and
+(``serve.graphs``, on the capture that the trainer shares:
+``repro_torch.graphs``); ``graph_counts`` counts the captures, replays and
 failures. There is no eager path on CUDA: a capture that fails raises. A
 CPU group calls the model eagerly.
 """
@@ -38,52 +39,20 @@ import torch
 
 from repro_torch import telemetry as telemetry_mod
 from repro_torch.configs.base import LMConfig
-from repro_torch.core import (ChunkFailure, DeviceKind, DynamicScheduler,
-                              GroupSpec, OverheadLedger, ThroughputTracker,
+from repro_torch.core import (ChunkFailure, DynamicScheduler, GroupSpec,
+                              OverheadLedger, ThroughputTracker,
                               TorchChunkExecutor)
-from repro_torch.core.dispatch import phase_totals
+from repro_torch.core.dispatch import (GroupDef, bucket, group_devices,
+                                       phase_totals)
 from repro_torch.core.energy import EnergyModel
+from repro_torch.graphs import GraphCounts
 from repro_torch.models import model as M
 from repro_torch.queue import (AdmissionController, Job, JobService,
                                JournalStore, QueueManager, percentiles)
-from repro_torch.serve.graphs import GraphCounts, GraphedStep
+from repro_torch.serve.graphs import GraphedStep
 from repro_torch.tenancy import (ShardedQueueManager, TenantAccountant,
                                  TenantRegistry)
-
-
-def bucket(n: int) -> int:
-    b = 1
-    while b < n:
-        b *= 2
-    return b
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card (``cuda:0``); with no CUDA device that
-    raises instead of falling back to the CPU. The CPU is used only when
-    asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA GPU is available; pass device='cpu' to run on the "
-                "CPU")
-        return torch.device("cuda", 0)
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", 0)
-    return device
-
-
-@dataclass
-class GroupDef:
-    name: str
-    kind: DeviceKind
-    device: Optional[object] = None   # torch.device / str; None = cuda:0
-    fixed_chunk: Optional[int] = None
-    async_depth: int = 1
-    priority_boost: bool = False
-    slowdown: float = 1.0          # artificial slowdown for straggler tests
-    fail_after_chunks: Optional[int] = None   # fault injection
+from repro_torch.train.optimizer import tree_map
 
 
 @dataclass
@@ -145,12 +114,6 @@ class FederatedServeReport:
     new_tokens: int = 0
 
 
-def _to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 class HeteroServeEngine:
     def __init__(self, cfg: LMConfig, groups: List[GroupDef],
                  prompt_len: int = 32, decode_tokens: int = 8,
@@ -162,12 +125,7 @@ class HeteroServeEngine:
             raise ValueError("no device groups")
         self.cfg = cfg
         self.groups = groups
-        self.devices = {g.name: resolve_device(g.device) for g in groups}
-        cuda = sorted(n for n, d in self.devices.items() if d.type == "cuda")
-        if cuda and cfg.activation_dtype != torch.bfloat16:
-            raise ValueError(
-                f"{cfg.arch_id} in {cfg.dtype} on CUDA (groups {cuda}): the "
-                f"CUDA kernels take bfloat16; run {cfg.dtype} on the CPU")
+        self.devices = group_devices(cfg, groups, "run")
         self.prompt_len = prompt_len
         self.decode_tokens = decode_tokens
         self.max_len = max_len or bucket(prompt_len + decode_tokens)
@@ -188,7 +146,7 @@ class HeteroServeEngine:
         self._params: Dict[torch.device, Dict] = {}
         for dev in self.devices.values():
             if dev not in self._params:
-                self._params[dev] = _to_device(params, dev)
+                self._params[dev] = tree_map(lambda t: t.to(dev), params)
         # (executor or None, bucket) -> (prefill_fn, decode_fn): None
         # keys the eager functions every CPU executor shares; a CUDA
         # executor has graphs of its own

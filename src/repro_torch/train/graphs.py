@@ -10,11 +10,8 @@ chunk of that bucket.
 - The inputs are static buffers shaped as the data pipeline's batch of
   the bucket (``static_batch``). A call copies the chunk's batch into them
   on the executor's stream.
-- Before the capture, ``WARMUP_STEPS`` eager steps on the executor's
-  stream build the kernels, set their attributes and allocate cuBLAS's
-  workspace and the RoPE tables outside the graph's pool. The stream is
-  then synchronised and the allocator's free blocks released, so that the
-  pool can take that memory.
+- The capture (``repro_torch.graphs.record``) comes after
+  ``WARMUP_STEPS`` eager steps on the executor's stream.
 - The weights are read at their capture-time addresses. The trainer
   updates them in place (``adamw_update``, ``_refresh_copies``) and drops
   its graphs when it takes other tensors (``load_state``); a call with
@@ -26,25 +23,16 @@ chunk of that bucket.
 - The pool holds a whole chunk's activations and gradients for the
   graph's life; each capture's entry in ``GraphCounts.capture_log`` has
   the bytes it reserved (``pool_bytes``).
-
-Captures take turns on a device (``serve.graphs.capture_lock``), in
-``thread_local`` mode. A capture's launches (its warm-up included) are not
-counted; each replay counts those its capture recorded
-(``kernels.launch_count``). Nothing falls back to eager: a capture or a
-replay that raises is counted in ``GraphCounts.failures``.
 """
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import Dict
 
 import torch
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.kernels.launch_count import CountedGraph, uncounted
-from repro_torch.serve.graphs import (GraphCounts, capture_lock, replay,
-                                      same_leaves)
+from repro_torch.graphs import GraphCounts, capturing, record, replay, \
+    same_leaves
 from repro_torch.train.optimizer import tree_map
 from repro_torch.train.train_step import chunk_grad_step
 
@@ -84,51 +72,14 @@ class GraphedGradStep:
         self.pair = (name, bucket)
         with torch.cuda.stream(stream):
             self.batch = static_batch(cfg, bucket, seq_len, stream.device)
-        try:
-            with capture_lock(stream.device), torch.enable_grad():
-                self._capture()
-        except BaseException:
-            counts.failed()
-            raise
-
-    def _capture(self) -> None:
-        cfg, params, stream = self.cfg, self.params, self.stream
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream), uncounted(stream):
-            for _ in range(WARMUP_STEPS):
-                out = chunk_grad_step(cfg, params, self.batch)
-                del out
-        stream.synchronize()
-        t1 = time.perf_counter()
-        self._graph, self.out, pool = self._record(
-            lambda: chunk_grad_step(cfg, params, self.batch))
-        t2 = time.perf_counter()
-        self.counts.captured({
-            "executor": self.pair[0], "bucket": self.pair[1],
-            "warmup_s": t1 - t0, "capture_s": t2 - t1,
-            "launches": dict(self._graph.launches), "pool_bytes": pool})
-
-    def _record(self, fn):
-        """(``fn()`` captured on the stream as a ``CountedGraph``, the
-        outputs it left in the graph's pool, the bytes the pool
-        reserved)."""
-        device = self.stream.device
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream), uncounted(self.stream) as tally:
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = fn()
-            except BaseException:
-                # the capture is lost: end it, and raise the error that
-                # lost it (an out-of-memory error, say), not the end's
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        return (CountedGraph(graph, tally), out,
-                torch.cuda.memory_reserved(device) - before)
+        with capturing(stream.device, counts), torch.enable_grad():
+            rec = record(lambda: chunk_grad_step(cfg, params, self.batch),
+                         stream, WARMUP_STEPS)
+        self._graph, self.out = rec.graph, rec.out
+        counts.captured({
+            "executor": name, "bucket": bucket, "warmup_s": rec.warmup_s,
+            "capture_s": rec.capture_s, "launches": dict(rec.graph.launches),
+            "pool_bytes": rec.pool_bytes})
 
     def _clone(self):
         grads, loss_n, n = self.out

@@ -27,7 +27,8 @@ orders every later chunk's stream behind it.
 ``_grad_fn(executor, b)`` is the JAX trainer's ``_grad_fn``, which
 ``jax.jit``s the gradient step once per chunk size. On a CUDA group it
 replays a CUDA graph of the step captured once per (executor, bucket) on
-the executor's stream (``train.graphs``); ``graph_counts`` counts the
+the executor's stream (``train.graphs``, on the capture that the engine
+shares: ``repro_torch.graphs``); ``graph_counts`` counts the
 captures, replays and failures. There is no eager path on CUDA: a capture
 that fails raises. Each bucket's graph keeps a chunk's activations and
 gradients in a pool of its own; where a capture finds no room, the
@@ -60,35 +61,16 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.core import (ChunkFailure, ChunkRecord, DeviceKind,
                               DynamicScheduler, GroupSpec, TorchChunkExecutor)
 from repro_torch.core.chunk_search import search_chunk
-from repro_torch.core.dispatch import PhaseMarks, phase_totals
+from repro_torch.core.dispatch import (GroupDef, PhaseMarks, bucket,
+                                       group_devices, phase_totals)
 from repro_torch.data.pipeline import for_model
+from repro_torch.graphs import GraphCounts
 from repro_torch.models import model as M
-from repro_torch.serve.engine import resolve_device
-from repro_torch.serve.graphs import GraphCounts
 from repro_torch.train.graphs import GraphedGradStep
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                          init_opt_state, tree_leaves,
                                          tree_map, tree_unflatten)
 from repro_torch.train.train_step import chunk_grad_step
-
-
-def bucket(n: int) -> int:
-    b = 1
-    while b < n:
-        b *= 2
-    return b
-
-
-@dataclass
-class GroupDef:
-    name: str
-    kind: DeviceKind
-    device: object = None          # torch.device / str; None = cuda:0
-    fixed_chunk: Optional[int] = None
-    async_depth: int = 1
-    priority_boost: bool = False
-    slowdown: float = 1.0          # artificial slowdown for straggler tests
-    fail_after_chunks: Optional[int] = None   # fault injection
 
 
 @dataclass
@@ -120,12 +102,7 @@ class HeteroTrainer:
                  params: Optional[Dict] = None, telemetry=None):
         if not groups:
             raise ValueError("no device groups")
-        self.devices = {g.name: resolve_device(g.device) for g in groups}
-        cuda = sorted(n for n, d in self.devices.items() if d.type == "cuda")
-        if cuda and cfg.activation_dtype != torch.bfloat16:
-            raise ValueError(
-                f"{cfg.arch_id} in {cfg.dtype} on CUDA (groups {cuda}): the "
-                f"CUDA kernels take bfloat16; train {cfg.dtype} on the CPU")
+        self.devices = group_devices(cfg, groups, "train")
         self.repeat_data = repeat_data
         self.cfg = cfg
         self.groups = groups

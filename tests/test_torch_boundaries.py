@@ -5,6 +5,11 @@ An AST scan of every module of ``src/repro_torch``, of the port's examples
 fails on any import of ``jax``, ``ml_dtypes``, ``repro`` or ``repro.*``
 (``repro_torch`` itself is allowed). The machine with the card has neither
 JAX nor ml_dtypes, and the port keeps its own copy of what it needs.
+
+Inside the port, training does not reach into serving: no module under
+``src/repro_torch/train/`` imports ``repro_torch.serve`` (what both use,
+the CUDA-graph capture and the device groups, lives below both, in
+``repro_torch.graphs`` and ``core/dispatch.py``).
 """
 import ast
 from pathlib import Path
@@ -16,15 +21,24 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + sorted((ROOT / "examples" / "torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+TRAINING = sorted((ROOT / "src" / "repro_torch" / "train").glob("*.py"))
 
 
-def _imported_modules(tree):
+def _imported_modules(tree, package=None):
+    """(line, module) of each import in ``tree``; a relative import is
+    resolved against ``package`` (a module's dotted package) where it is
+    given, and skipped where it is not."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield node.lineno, alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.lineno, node.module or ""
+        elif isinstance(node, ast.ImportFrom) and package is not None:
+            base = package.split(".")[:len(package.split(".")) + 1
+                                      - node.level]
+            yield node.lineno, ".".join(base + ([node.module]
+                                                if node.module else []))
         elif isinstance(node, ast.Call) and getattr(
                 node.func, "attr", getattr(node.func, "id", "")) in (
                 "import_module", "__import__") and node.args \
@@ -53,6 +67,30 @@ def test_the_scan_catches_what_it_forbids():
     mods = [m for _, m in _imported_modules(ast.parse(src))
             if m.split(".")[0] in FORBIDDEN]
     assert mods == ["jax.numpy", "repro.core", "ml_dtypes", "repro.models"]
+
+
+def _reaches_serving(src, package="repro_torch.train"):
+    return [(line, mod) for line, mod in _imported_modules(
+        ast.parse(src), package)
+        if mod == "repro_torch.serve" or mod.startswith("repro_torch.serve.")]
+
+
+@pytest.mark.parametrize("path", TRAINING,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_training_imports_nothing_of_serving(path):
+    bad = _reaches_serving(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_serving_scan_catches_what_it_forbids():
+    src = ("from repro_torch.serve.graphs import GraphCounts\n"
+           "import repro_torch.serve\nfrom ..serve import engine\n"
+           "from .graphs import record\nfrom repro_torch import graphs\n"
+           "from repro_torch.server_stats import x\n")
+    assert [m for _, m in _reaches_serving(src)] == [
+        "repro_torch.serve.graphs", "repro_torch.serve",
+        "repro_torch.serve"]
+    assert len(TRAINING) >= 6
 
 
 def test_the_training_modules_are_scanned():

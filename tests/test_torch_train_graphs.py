@@ -2,8 +2,10 @@
 what a CUDA graph of it needs.
 
 On the CPU: the ``_grad_fns`` cache, keyed by (executor, bucket), its CPU
-executors eager and never capturing; a failed capture raising and
-counted, with no eager fallback; a capture without room dropping the
+executors eager and never capturing; a failed capture raising the step's
+own error and counted, with no eager fallback, here and in the serving
+engine's ``_fns_for``, which share the capture (``repro_torch.graphs``);
+a capture without room dropping the
 executor's other buckets first; the update and the refresh of the copies
 keeping every tensor at its address, which a graph reads; ``load_state``
 dropping the graphs; and ``GraphedGradStep`` itself, its CUDA graph
@@ -37,8 +39,11 @@ from repro_torch.data.pipeline import for_model
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import launch_count
 from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.graphs import GraphCounts, Recorded
 from repro_torch.kernels.launch_count import CountedGraph
-from repro_torch.serve.graphs import GraphCounts
+from repro_torch.models import model as TM
+from repro_torch.serve.engine import HeteroServeEngine
+from repro_torch.serve.graphs import GraphedStep
 from repro_torch.train import graphs as train_graphs
 from repro_torch.train import trainer as trainer_mod
 from repro_torch.train.optimizer import OptConfig, tree_leaves, tree_map
@@ -176,50 +181,105 @@ def test_a_groups_injected_failure_counts_the_chunks_of_each_step():
         assert rep.per_group_items.get("accel", 0) == 4
 
 
-def _failing_record(self, fn):
-    raise RuntimeError("capture failed")
-
-
 @pytest.fixture
 def stand_in_stream(monkeypatch):
-    """``torch.cuda.stream`` and ``current_stream`` for a stand-in stream
-    on the CPU: entering it does nothing, and it is the current stream."""
+    """``torch.cuda.stream``, ``current_stream`` and ``device`` for a
+    stand-in stream on the CPU: entering it or its device does nothing,
+    and it is the current stream."""
     stream = StandInStream(CPU)
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: stream)
     return stream
 
 
+class LostCapture:
+    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: while it
+    captures, the step fails (``_fail_in_capture``), and ``capture_end``
+    then raises an error of its own, as a real graph's does after a
+    capture an error lost."""
+    capturing = False
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        LostCapture.capturing = True
+
+    def capture_end(self):
+        LostCapture.capturing = False
+        raise RuntimeError("CUDA error: operation failed due to a previous "
+                           "error during capture")
+
+
+def _fail_in_capture(monkeypatch, module, name, eager_calls):
+    """``module.name`` raising an out-of-memory error inside a capture,
+    and counting its eager calls outside one."""
+    real = getattr(module, name)
+
+    def step(*args, **kwargs):
+        if LostCapture.capturing:
+            raise torch.cuda.OutOfMemoryError("out of memory in the step")
+        eager_calls.append(name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, step)
+
+
+@pytest.mark.parametrize("owner", ["serve", "train"])
 def test_a_failed_capture_raises_and_is_counted_without_falling_back(
-        monkeypatch, stand_in_stream):
-    """A capture that raises is counted a failure and raised, by
-    ``GraphedGradStep`` and through the trainer, which caches nothing and
-    runs no eager step in its place: the next chunk of the bucket tries
-    the capture again, and fails again."""
-    monkeypatch.setattr(train_graphs.GraphedGradStep, "_record",
-                        _failing_record)
+        owner, monkeypatch, stand_in_stream):
+    """A capture lost to the step's own error (out of memory) is ended and
+    raises that error, not the one ``capture_end`` raises after it; it is
+    counted a failure, by the step's graphs (the engine's
+    ``GraphedStep``, the trainer's ``GraphedGradStep``) and through their
+    owner (``_fns_for``, ``_grad_fn``), which caches nothing and runs no
+    eager step in its place: the next chunk of the bucket tries the
+    capture again, its warm-up first, and fails again."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", LostCapture)
     eager_calls = []
-    real = train_graphs.chunk_grad_step
-    monkeypatch.setattr(train_graphs, "chunk_grad_step",
-                        lambda *a: eager_calls.append(1) or real(*a))
-    tr = _trainer()
-    counts = GraphCounts()
-    with pytest.raises(RuntimeError, match="capture failed"):
-        train_graphs.GraphedGradStep(tr.cfg, tr.params, 4, SEQ,
-                                     stand_in_stream, counts, "accel")
-    snap = counts.snapshot()
-    assert (snap["captures"], snap["failures"]) == (0, 1)
-    assert len(eager_calls) == train_graphs.WARMUP_STEPS    # the warm-up
-    monkeypatch.setattr(tr, "_weights", lambda device: tr.params)
     ex = StandInExecutor("accel")
     ex.stream = stand_in_stream
+    if owner == "serve":
+        _fail_in_capture(monkeypatch, TM, "prefill", eager_calls)
+        eng = HeteroServeEngine(
+            _cfg(), [GroupDef("accel", DeviceKind.ACCEL, device="cpu",
+                              fixed_chunk=4)], prompt_len=8, decode_tokens=2)
+        eng._params[CUDA0] = params = eng._params[CPU]
+
+        def capture(counts):
+            return GraphedStep(eng.cfg, params, 4, eng.prompt_len,
+                               eng.max_len, stand_in_stream, counts, "accel")
+
+        again, cached, counts = (lambda: eng._fns_for(4, ex)), eng._fns, \
+            eng.graph_counts
+        warmup = 1
+    else:
+        _fail_in_capture(monkeypatch, train_graphs, "chunk_grad_step",
+                         eager_calls)
+        tr = _trainer()
+        monkeypatch.setattr(tr, "_weights", lambda device: tr.params)
+
+        def capture(counts):
+            return train_graphs.GraphedGradStep(
+                tr.cfg, tr.params, 4, SEQ, stand_in_stream, counts, "accel")
+
+        again, cached, counts = (lambda: tr._grad_fn(ex, 4)), \
+            tr._grad_fns, tr.graph_counts
+        warmup = train_graphs.WARMUP_STEPS
+    own = GraphCounts()
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="in the step"):
+        capture(own)
+    snap = own.snapshot()
+    assert (snap["captures"], snap["failures"]) == (0, 1)
+    assert len(eager_calls) == warmup                    # the warm-up
+    assert stand_in_stream.synchronised == 1
     for failures in (1, 2):
-        with pytest.raises(RuntimeError, match="capture failed"):
-            tr._grad_fn(ex, 4)
-        assert tr.graph_counts.snapshot()["failures"] == failures
-        assert tr._grad_fns == {}
-    assert len(eager_calls) == 3 * train_graphs.WARMUP_STEPS
+        with pytest.raises(torch.cuda.OutOfMemoryError, match="in the step"):
+            again()
+        assert counts.snapshot()["failures"] == failures
+        assert cached == {}
+    assert len(eager_calls) == 3 * warmup
+    assert not LostCapture.capturing
 
 
 def test_a_capture_without_room_drops_the_executors_other_buckets(
@@ -390,9 +450,9 @@ class ReplayedGraph:
         self.replays += 1
 
 
-def _stand_in_record(self, fn):
+def _stand_in_record(fn, stream, n=0, warm=None, pool=None):
     graph = ReplayedGraph(fn)
-    return CountedGraph(graph, {}), graph.out, 0
+    return Recorded(CountedGraph(graph, {}), graph.out, 0, 0.0, 0.0)
 
 
 def _flat(out):
@@ -407,8 +467,7 @@ def test_each_call_keeps_its_gradients_after_the_next_of_the_bucket(
     loss * n and n bit for bit, and the first call's survive the second
     replay, which overwrote the graph's own outputs. One capture, two
     replays; other weights, or a batch of another bucket, are refused."""
-    monkeypatch.setattr(train_graphs.GraphedGradStep, "_record",
-                        _stand_in_record)
+    monkeypatch.setattr(train_graphs, "record", _stand_in_record)
     tr = _trainer()
     cfg, params = tr.cfg, tr.params
     counts = GraphCounts()

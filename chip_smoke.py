@@ -30,7 +30,13 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
    computes the SSD scan); then every other instantiation (K1 at head
    dims 16, 32, 96 and 128, K2 at every (head dim, group) pair with its
    own split count and 3 splits, K3 at (P, N) = (16, 8)) against its
-   plain version on small ragged inputs;
+   plain version on small ragged inputs; and the trainer's AdamW step
+   (B8: the norm pass and the update pass over the chunks' gradients) at
+   the training cell's 4 bf16 chunks, on stablelm-1.6b's largest leaf
+   against the plain chain (bit-equal given the kernel's clip scale) and
+   over its whole tree, its device time from ``torch.profiler`` (the
+   wrapper copies a table to the card each call, which no graph
+   captures);
 3. the model at full width on a small input: stablelm-1.6b cut to 2 layers,
    prefill + 4 greedy decode steps through the kernels, against the same
    run with the kernels' plain versions in their place (bf16, on the card);
@@ -124,9 +130,10 @@ Phases, each uncaught (any failure exits non-zero and prints no result):
       512, global batch 32 of the same examples, 6 AdamW steps: the loss
       falls, every step covers 32 examples, flash-attention launches
       exactly 2 x 24 a chunk (the forward and the recompute), the
-      backward's two kernels 2 x 24 (dq, then dk and dv, once a layer)
-      and no other kernel launches; time per step, tokens/s and peak memory, with one
-      synchronise, at the end of the window. Every training phase on the
+      backward's two kernels 2 x 24 (dq, then dk and dv, once a layer),
+      the AdamW kernel 3 a step (as on every training path: 13e, 14c,
+      18) and no other kernel launches; time per step, tokens/s and peak
+      memory, with one synchronise, at the end of the window. Every training phase on the
       card runs the trainer's CUDA graphs (``_grad_fn``: one graph of the
       chunk's forward and backward captured per executor and batch
       bucket, a replay a chunk): each pair captured once, no capture or
@@ -367,6 +374,7 @@ def _kernel_name(mangled: str) -> str:
 
 def phase_occupancy(dev):
     """Resident blocks per SM of every instantiation of the kernels."""
+    from repro_torch.kernels import adamw_step as AS
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
@@ -403,6 +411,12 @@ def phase_occupancy(dev):
         o = S1.occupancy(P, N, dev)
         occ[f"ssm_state_step P={P} N={N}"] = o.blocks
         log(f"ssm_state_step occupancy P={P} N={N}: {o.blocks} resident "
+            f"blocks of 256 threads per SM, {o.registers} registers, "
+            f"{o.local_bytes} bytes of local memory (spills) per thread")
+    for which in ("norm", "update"):
+        o = AS.occupancy(which, dev)
+        occ[f"adamw_step {which}"] = o.blocks
+        log(f"adamw_step occupancy, the {which} pass: {o.blocks} resident "
             f"blocks of 256 threads per SM, {o.registers} registers, "
             f"{o.local_bytes} bytes of local memory (spills) per thread")
     if min(occ.values()) < 1:
@@ -545,6 +559,7 @@ def phase_kernels(dev):
     rows["flash_decode"]["max_abs_err"] = fd_err
     rows["ssd_scan"] = ssd_rows(dev, gen)
     rows["ssm_state_step"] = ssm_step_rows(dev, gen)
+    rows["adamw_step"] = adamw_rows(dev)
     kernel_variants(dev, gen)
     return rows
 
@@ -752,6 +767,149 @@ def ssm_step_rows(dev, gen):
     return row
 
 
+def profiled_ms(fn, iters: int, match: str) -> dict:
+    """Device ms a call of each kernel whose name holds ``match``, from
+    ``torch.profiler`` over ``iters`` calls after a warm-up (for a wrapper
+    that copies a table to the card each call, which no CUDA graph can
+    capture)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
+            name = re.search(r"\w*" + re.escape(match) + r"\w*",
+                             e.name).group(0)
+            out[name] = out.get(name, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3 / iters
+    if not out:
+        raise AssertionError(f"the profiler saw no device time of {match}")
+    return out
+
+
+#: the training cell's AdamW: 4 chunks of 8 examples, OptConfig's betas,
+#: eps and weight decay, lr 1e-3 at step 3
+ADAMW_COUNTS = [8.0, 8.0, 8.0, 8.0]
+
+
+def adamw_rows(dev):
+    """The trainer's AdamW step (B8), the cell's 4 chunks of bf16
+    gradients, at stablelm-1.6b's largest leaf (``main``: an MLP matrix of
+    every layer, 24 x 2048 x 5632) and over its whole tree (``tree``: 15
+    leaves, 1.645e9 parameters, 6 of the leaves fp32): the kernel's two
+    passes against the plain chain given the kernel's clip scale (m, v,
+    master and the parameters bit-equal; the values that differ counted),
+    the norm against the plain chain's; times: ``ms`` the three kernels'
+    device time a step (``profiled_ms``), back to back (whole calls from
+    Python, the tables' build and copy in it), the bound (bytes / 3.35
+    TB/s: 42 B a bf16 parameter), the plain chain's (combine, norm, clip,
+    AdamW), blocks per SM, registers and spills of each pass."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import adamw_step as AS
+    from repro_torch.kernels import cost
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+    shapes = [(tuple(t.shape), t.dtype) for t in tree_leaves(
+        M.abstract_params(get_config("stablelm-1.6b")))]
+    largest = max(shapes, key=lambda sd: math.prod(sd[0]))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    hp = AS.Hyper(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
+                  bc1=float(1 - torch.tensor(0.9) ** 3),
+                  bc2=float(1 - torch.tensor(0.95) ** 3))
+    occ = {w: AS.occupancy(w, dev) for w in ("norm", "update")}
+    k, counts = len(ADAMW_COUNTS), ADAMW_COUNTS
+
+    def rnd(shape, scale, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    row, shapes_out = None, {}
+    for name, leaves in (("main", [largest]), ("tree", shapes)):
+        params = [rnd(sh, 0.02, dt) for sh, dt in leaves]
+        grads = [[rnd(sh, 1e-3, dt) for _ in range(k)] for sh, dt in leaves]
+        state = [[rnd(sh, 1e-3) for sh, _ in leaves],
+                 [rnd(sh, 1e-3).square() for sh, _ in leaves],
+                 [p.float() for p in params]]
+        # the plain chain's own copy of the state where there is room
+        want = [[t.clone() for t in ts] for ts in state] + \
+            [[p.clone() for p in params]] if name == "main" else None
+        before = AS.launches
+        gn = AS.grad_norm(grads, counts, 1.0)
+        AS.adamw_step(grads, counts, gn, *state, params, hp)
+        torch.cuda.synchronize()
+        if AS.launches != before + 3:
+            raise AssertionError(f"adamw_step {name}: {AS.launches - before}"
+                                 f" launches, expected 3")
+        plain = AS.grad_norm_plain(grads, counts, 1.0)
+        norm_err = abs(float(gn.norm) - float(plain.norm)) \
+            / float(plain.norm)
+        differing = {}
+        if want is not None:
+            AS.adamw_step_plain(grads, counts, AS.GradNorm(
+                gn.norm, gn.scale, plain.combined), *want, hp)
+            torch.cuda.synchronize()
+            for what, got, exp in zip(("m", "v", "master", "params"),
+                                      [*state, params], want):
+                differing[what] = sum(int((a != b).sum())
+                                      for a, b in zip(got, exp))
+        del plain, want
+        if norm_err > 1e-5 or any(differing.values()):
+            raise AssertionError(f"adamw_step {name}: norm {float(gn.norm)} "
+                                 f"({norm_err:.3e} from the plain one), "
+                                 f"values differing {differing}")
+
+        def step():
+            g = AS.grad_norm(grads, counts, 1.0)
+            AS.adamw_step(grads, counts, g, *state, params, hp)
+
+        device = profiled_ms(step, 10, "adamw_")
+        ms = sum(device.values())
+        b2b_ms = cuda_ms(step, 10)
+        plain_ms = cuda_ms(lambda: AS.adamw_step_plain(
+            grads, counts, AS.grad_norm_plain(grads, counts, 1.0), *state,
+            params, hp), 3)
+        n = sum(math.prod(sh) for sh, _ in leaves)
+        nbytes = sum(cost.adamw_norm_bytes(math.prod(sh), dt.itemsize, k)
+                     + cost.adamw_update_bytes(math.prod(sh), dt.itemsize, k)
+                     for sh, dt in leaves)
+        flops = sum(cost.adamw_norm_flops(math.prod(sh), k)
+                    + cost.adamw_update_flops(math.prod(sh), k)
+                    for sh, _ in leaves)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"adamw_step {name}: {len(leaves)} leaves, {n} parameters, "
+            f"{k} chunks; norm {float(gn.norm):.6g} ({norm_err:.3e} from the "
+            f"plain chain's), values differing from the plain chain "
+            f"{differing or 'not compared (no room for a second state)'}; "
+            f"ms={ms:.4f} (" + ", ".join(f"{kn} {t:.4f}"
+                                         for kn, t in device.items())
+            + f") (back to back {b2b_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}; {nbytes / 1e9:.2f} GB; "
+            f"{100 * b_ms / ms:.1f}% of the bound); norm pass "
+            f"{occ['norm'].blocks} blocks per SM, {occ['norm'].registers} "
+            f"registers, {occ['norm'].local_bytes} B spilled; update pass "
+            f"{occ['update'].blocks}, {occ['update'].registers}, "
+            f"{occ['update'].local_bytes}")
+        shape = dict(ms=ms, device_ms_by_kernel=device,
+                     back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, parameters=n,
+                     norm_err=norm_err, values_differing=differing,
+                     blocks_per_sm={w: o.blocks for w, o in occ.items()},
+                     registers={w: o.registers for w, o in occ.items()},
+                     spill_bytes={w: o.local_bytes for w, o in occ.items()})
+        if name == "main":
+            row = dict(shape, library_ms=None, library_back_to_back_ms=None,
+                       max_abs_err=0.0)
+        else:
+            shapes_out[name] = shape
+        del params, grads, state, gn
+        torch.cuda.empty_cache()
+    row["shapes"] = shapes_out
+    return row
+
+
 class _PlainAttentionFn:
     """``FlashAttentionFn``'s plain version: autograd through the plain
     flash-attention, in the grouped layout, neither the kernel nor the
@@ -813,6 +971,7 @@ class plain_kernels:
 
 
 def _launches():
+    from repro_torch.kernels import adamw_step as AS
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
@@ -820,17 +979,24 @@ def _launches():
     from repro_torch.kernels import ssm_state_step as S1
     return {"flash_attention": FA.launches, "flash_attention_bwd": FB.launches,
             "flash_decode": FD.launches, "ssd_scan": SSD.launches,
-            "ssm_state_step": S1.launches}
+            "ssm_state_step": S1.launches, "adamw_step": AS.launches}
 
 
 def _zero_launches():
+    from repro_torch.kernels import adamw_step as AS
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels import ssm_state_step as S1
     FA.launches = FB.launches = FD.launches = SSD.launches = 0
-    S1.launches = 0
+    S1.launches = AS.launches = 0
+
+
+#: the AdamW kernel's launches a training step: the norm pass's two, the
+#: update pass's one
+ADAMW_PER_STEP = 3
+
 
 
 def _expect_graphs(eng, before, chunks, decode_tokens, what):
@@ -900,7 +1066,8 @@ def phase_reference(dev, cfg, params):
     got, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
-                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0}:
+                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0,
+                  "adamw_step": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     with plain_kernels():
         ref, _ = greedy_run(cfg2, params2, tokens, max_len, prefix=prefix)
@@ -1197,7 +1364,8 @@ def phase_reference_hybrid(dev, cfg, params):
         dev, cfg, params, 7)
     # the 7 Mamba-2 blocks' state step in each of the 4 decode steps
     want = {"flash_attention": 1, "flash_attention_bwd": 0,
-            "flash_decode": 4, "ssd_scan": 7, "ssm_state_step": 28}
+            "flash_decode": 4, "ssd_scan": 7, "ssm_state_step": 28,
+            "adamw_step": 0}
     if counts != want:
         raise AssertionError(f"hybrid reference check launches {counts}, "
                              f"expected {want}")
@@ -1270,7 +1438,8 @@ def phase_reference_moe(dev, cfg, params):
         got, toks = greedy_run(cfg2, params2, prompt, 128)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
-                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0}:
+                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0,
+                  "adamw_step": 0}:
         raise AssertionError(f"the reference check's launches: {counts}")
     if not torch.isfinite(got).all():
         raise AssertionError("non-finite logits through the kernels")
@@ -1498,7 +1667,7 @@ def _overlapped_batches(telemetry) -> int:
 def _expect_launches(counts, chunks, n_layers):
     want = {"flash_attention": chunks * n_layers, "flash_attention_bwd": 0,
             "flash_decode": chunks * n_layers * (JOB_DECODE - 1),
-            "ssd_scan": 0, "ssm_state_step": 0}
+            "ssd_scan": 0, "ssm_state_step": 0, "adamw_step": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want} "
                              f"for {chunks} chunks")
@@ -2252,6 +2421,7 @@ def phase_train_main(dev, cfg, params, per_chunk, steps=TRAIN_STEPS,
     counts = _launches()
     chunks = sum(r["chunks"] for r in records)
     want = {k: chunks * per_chunk.get(k, 0) for k in counts}
+    want["adamw_step"] = ADAMW_PER_STEP * steps
     out = {"steps": records, "chunks": chunks, "launches": counts,
            "wall_s": wall_s, "s_per_step": wall_s / steps,
            "tok_per_s": sum(r["examples"] for r in records) * seq_len
@@ -2402,7 +2572,8 @@ def phase_train_hetero(dev):
     out = {"losses": [r.loss for r in reps],
            "examples": [r.examples for r in reps],
            "items": [r.per_group_items for r in reps],
-           "failed": [r.failed_groups for r in reps], "launches": counts}
+           "failed": [r.failed_groups for r in reps],
+           "launches": counts}
     log("heterogeneous training report (reduced stablelm-1.6b): "
         + json.dumps(out))
     if any(r.examples != 32 or sum(r.per_group_items.values()) != 32
@@ -2414,7 +2585,8 @@ def phase_train_hetero(dev):
     # kernels once each a layer
     if counts != {"flash_attention": accel_chunks * 2 * cfg.n_layers,
                   "flash_attention_bwd": accel_chunks * 2 * cfg.n_layers,
-                  "flash_decode": 0, "ssd_scan": 0, "ssm_state_step": 0}:
+                  "flash_decode": 0, "ssd_scan": 0, "ssm_state_step": 0,
+                  "adamw_step": ADAMW_PER_STEP * len(reps)}:
         raise AssertionError(f"kernel launches {counts} for {accel_chunks} "
                              f"accel chunks")
 
@@ -2496,6 +2668,7 @@ def phase_train_graphs(dev, cfg, params, per_chunk, seq_len=TRAIN_SEQ,
         wall_s = time.perf_counter() - start
         counts = _launches()
         want = {k: chunks * per_chunk.get(k, 0) for k in counts}
+        want["adamw_step"] = ADAMW_PER_STEP * steps
         if counts != want:
             raise AssertionError(f"18 {cfg.arch_id} {mode}: kernel launches "
                                  f"{counts}, expected {want}")
@@ -2819,7 +2992,8 @@ def bulk_reference(dev, cfg, params):
     got, toks = greedy_run(cfg2, params2, prompt, 1024)
     counts = _launches()
     if counts != {"flash_attention": 2, "flash_attention_bwd": 0,
-                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0}:
+                  "flash_decode": 8, "ssd_scan": 0, "ssm_state_step": 0,
+                  "adamw_step": 0}:
         raise AssertionError(f"the b = 64 check's launches: {counts}")
     with no_tf32(), plain_kernels():
         plain, plain_toks = greedy_run(cfg2, params2, prompt, 1024, toks)
@@ -3277,7 +3451,7 @@ def main():
     phase_train_reference(dev, cfg, params, first_blocks(2),
                           {"flash_attention": 4, "flash_attention_bwd": 4,
                            "flash_decode": 0, "ssd_scan": 0,
-                           "ssm_state_step": 0})
+                           "ssm_state_step": 0, "adamw_step": 0})
     counts["stablelm-1.6b training"], train_out = phase_train_main(
         dev, cfg, params, _dense_per_chunk(cfg))
     phase_train_ordering(dev, cfg, params)
@@ -3296,7 +3470,7 @@ def main():
     phase_train_reference(dev, cfg, params, first_blocks(2),
                           {"flash_attention": 4, "flash_attention_bwd": 4,
                            "flash_decode": 0, "ssd_scan": 0,
-                           "ssm_state_step": 0})
+                           "ssm_state_step": 0, "adamw_step": 0})
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, _dense_per_chunk(cfg))
     phase_recompute_routing(dev, cfg, params)
@@ -3311,7 +3485,7 @@ def main():
                           lambda c, p: hybrid_cut(c, p, 7),
                           {"flash_attention": 2, "flash_attention_bwd": 2,
                            "flash_decode": 0, "ssd_scan": 2 * 6 + 1,
-                           "ssm_state_step": 0})
+                           "ssm_state_step": 0, "adamw_step": 0})
     # remat per group: a group's Mamba-2 blocks and shared block run twice
     # a chunk (forward, recompute), the tail blocks once, as in the JAX
     # package (src/repro/models/hybrid.py:63-67)
@@ -3330,7 +3504,7 @@ def main():
     phase_train_reference(dev, cfg, params, first_pair,
                           {"flash_attention": 0, "flash_attention_bwd": 0,
                            "flash_decode": 0, "ssd_scan": 0,
-                           "ssm_state_step": 0})
+                           "ssm_state_step": 0, "adamw_step": 0})
     counts[f"{cfg.arch_id} training"], _ = phase_train_main(
         dev, cfg, params, {}, steps=XLSTM_TRAIN_STEPS,
         seq_len=XLSTM_TRAIN_SEQ, global_batch=XLSTM_TRAIN_BATCH)
@@ -3361,6 +3535,10 @@ def main():
         "ssm_state_step": (
             "src/repro_torch/kernels/csrc/ssm_state_step.cu",
             "none: src/repro/models/ssm.py:182 mamba2_decode_step is plain "
+            "JAX"),
+        "adamw_step": (
+            "src/repro_torch/kernels/csrc/adamw_step.cu",
+            "none: src/repro/train/optimizer.py:70 adamw_update is plain "
             "JAX"),
     }
     kernels = []

@@ -111,6 +111,30 @@ def ssm_state_step_bytes(b: int, nh: int, P: int, g: int, N: int) -> int:
         + 4 * (b * nh + b * nh * P + 2 * nh)
 
 
+def adamw_norm_flops(n: int, k: int) -> int:
+    """The AdamW step's norm pass over n elements of k chunks: the combine
+    (k products, k - 1 sums, the product by 1 / N) and the square and its
+    sum."""
+    return (2 * k + 2) * n
+
+
+def adamw_norm_bytes(n: int, itemsize: int, k: int) -> int:
+    """The norm pass: each chunk's gradient read in its dtype."""
+    return k * itemsize * n
+
+
+def adamw_update_flops(n: int, k: int) -> int:
+    """The update pass: the combine again, the clip, m (3), v (4), the
+    update (7) and the master weight's step (2)."""
+    return (2 * k + 17) * n
+
+
+def adamw_update_bytes(n: int, itemsize: int, k: int) -> int:
+    """The update pass: each chunk's gradient read in its dtype, fp32 m, v
+    and master read and written, the parameter written in its dtype."""
+    return (k * itemsize + 24 + itemsize) * n
+
+
 @contextmanager
 def recording():
     """Collect the charges made in the block: {name: {"flops", "bytes",

@@ -4,7 +4,11 @@
 Trees are nested dicts of tensors, walked in sorted key order as
 ``jax.tree`` walks them. ``adamw_update`` updates the optimizer state and
 the parameters in place (the JAX version returns new trees, which at 1.6 B
-parameters would hold two copies of 26 GB of state) and returns them.
+parameters would hold two copies of 26 GB of state) and returns them. It
+takes one gradient tree, or the chunks' trees of a step (``ChunkGrads``),
+and runs in two passes over the leaves, the hand-written kernel's on the
+card (``kernels.adamw_step``) and the eager chain's plain version on the
+CPU: the combined gradient's norm and clip scale, then AdamW.
 The step count is a 0-d int32 tensor on the CPU, so the learning rate and
 the bias corrections are worked out without a device round trip.
 """
@@ -12,9 +16,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.kernels import adamw_step
 
 
 @dataclass(frozen=True)
@@ -100,8 +106,7 @@ def opt_state_axes(p_axes) -> Dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    return adamw_step.global_norm_plain(tree_leaves(tree))
 
 
 def _host(t: torch.Tensor):
@@ -110,30 +115,72 @@ def _host(t: torch.Tensor):
     return t if t.is_meta else float(t)
 
 
+def _taken(g: torch.Tensor, device: Optional[torch.device]) \
+        -> torch.Tensor:
+    """A chunk's leaf as the kernel reads it: on ``device``, contiguous and
+    16-byte aligned. A CUDA leaf was made on its chunk's stream and is read
+    (copied, moved or passed to the kernel) on this one: record_stream
+    keeps its memory from that stream's next allocations until the read is
+    done, also where the leaf itself is dropped once copied."""
+    if g.is_cuda:
+        g.record_stream(torch.cuda.current_stream(g.device))
+    if device is not None:
+        g = g.to(device)
+    if g.is_cuda and (not g.is_contiguous() or g.data_ptr() % 16):
+        return g.clone(memory_format=torch.contiguous_format)
+    return g
+
+
+class ChunkGrads:
+    """A step's gradients as its chunks left them, not yet combined: each
+    chunk's tree (like the parameters, in their dtype) and its example
+    count n. ``adamw_update`` combines them, sum g n / sum n in fp32, inside
+    its two passes over the leaves (``kernels.adamw_step``); on the card
+    the combined gradient is never stored. ``device``: where the leaves
+    are moved first (a CPU group's chunks, for the card's update). A CUDA
+    leaf that is not contiguous and 16-byte aligned, as autograd may give
+    a view, is copied into one that is, as the kernel reads it."""
+
+    def __init__(self, trees: Sequence, counts: Sequence[float],
+                 device: Optional[torch.device] = None):
+        chunks = [[_taken(g, device) for g in tree_leaves(t)]
+                  for t in trees]
+        #: leaf i's gradient from each chunk, in tree_leaves' order
+        self.leaves: List[List[torch.Tensor]] = [list(c) for c in
+                                                 zip(*chunks)]
+        self.counts = [float(n) for n in counts]
+        self._norm: Optional[adamw_step.GradNorm] = None
+
+    def norm(self, oc: OptConfig) -> adamw_step.GradNorm:
+        """The first pass, once: the combined gradient's global norm and
+        the clip scale (``oc.clip_norm``), on the leaves' device."""
+        if self._norm is None:
+            self._norm = adamw_step.grad_norm(self.leaves, self.counts,
+                                              oc.clip_norm)
+        return self._norm
+
+
 @torch.no_grad()
 def adamw_update(oc: OptConfig, params, grads, opt: Dict) \
         -> Tuple[Dict, Dict, Dict]:
-    """Returns (params, opt, metrics): ``params`` and ``opt``'s trees are
-    the ones passed in, updated in place."""
+    """``grads``: a tree like ``params`` (one chunk of weight 1) or a
+    ``ChunkGrads``, whose norm pass may have run already. Returns (params,
+    opt, metrics): ``params`` and ``opt``'s trees are the ones passed in,
+    updated in place, every tensor at its address."""
+    if not isinstance(grads, ChunkGrads):
+        grads = ChunkGrads([grads], [1.0])
+    gn = grads.norm(oc)
     step = opt["step"] + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(oc, step)
-    b1, b2 = oc.beta1, oc.beta2
     stepf = step.to(torch.float32)
-    bc1 = _host(1 - torch.tensor(b1, dtype=torch.float32) ** stepf)
-    bc2 = _host(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
-    lr_f = _host(lr)
-    for g, m, v, master, p in zip(tree_leaves(grads), tree_leaves(opt["m"]),
-                                  tree_leaves(opt["v"]),
-                                  tree_leaves(opt["master"]),
-                                  tree_leaves(params)):
-        g = g.float() * scale
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(torch.square(g) * (1 - b2))
-        update = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps) \
-            + oc.weight_decay * master
-        master.sub_(lr_f * update)
-        p.copy_(master)
+    bc1 = _host(1 - torch.tensor(oc.beta1, dtype=torch.float32) ** stepf)
+    bc2 = _host(1 - torch.tensor(oc.beta2, dtype=torch.float32) ** stepf)
+    adamw_step.adamw_step(
+        grads.leaves, grads.counts, gn, tree_leaves(opt["m"]),
+        tree_leaves(opt["v"]), tree_leaves(opt["master"]),
+        tree_leaves(params),
+        adamw_step.Hyper(lr=_host(lr), beta1=oc.beta1, beta2=oc.beta2,
+                         eps=oc.eps, weight_decay=oc.weight_decay, bc1=bc1,
+                         bc2=bc2))
     opt["step"] = step
-    return params, opt, {"grad_norm": gnorm, "lr": lr}
+    return params, opt, {"grad_norm": gn.norm, "lr": lr}

@@ -17,10 +17,12 @@ card): a CUDA group on its executor's stream, through the flash-attention
 kernel, a CPU group eagerly. The parameters, the fp32 optimizer state and
 the combine live on the first accelerator group's device; every other
 device a group uses reads its own copy of the weights, refreshed after each
-update. A chunk's gradients stay in the parameters' dtype until the combine
-moves them to that device and sums them in fp32, each scaled by the chunk's
-real example count (what the JAX package's fp32 promotion of ``g * n``
-computes). The weights are written on each device's current stream (the
+update. A chunk's gradients stay in the parameters' dtype; the update
+(``adamw_update`` on a ``ChunkGrads``) moves them to that device and sums
+them in fp32, each scaled by the chunk's real example count (what the JAX
+package's fp32 promotion of ``g * n`` computes), inside its two passes
+over the leaves: one hand-written kernel's on the card. The weights are
+written on each device's current stream (the
 update, the refresh of a copy); an event recorded there after the write
 orders every later chunk's stream behind it.
 
@@ -67,9 +69,9 @@ from repro_torch.data.pipeline import for_model
 from repro_torch.graphs import GraphCounts
 from repro_torch.models import model as M
 from repro_torch.train.graphs import GraphedGradStep
-from repro_torch.train.optimizer import (OptConfig, adamw_update,
-                                         init_opt_state, tree_leaves,
-                                         tree_map, tree_unflatten)
+from repro_torch.train.optimizer import (ChunkGrads, OptConfig,
+                                         adamw_update, init_opt_state,
+                                         tree_leaves, tree_map)
 from repro_torch.train.train_step import chunk_grad_step
 
 
@@ -87,8 +89,10 @@ class StepReport:
     #: accelerator groups' chunks' ``train.inputs``, ``train.update_wait``
     #: (the chunk's stream waiting for the last update), ``train.grad``,
     #: ``train.fetch_wait`` and ``train.fetch``, and the trainer's
-    #: ``train.combine``, ``train.update`` (the global norm, the clip and
-    #: AdamW) and ``train.refresh`` (the copies of the weights and the mark
+    #: ``train.combine`` (the update's first pass: the chunks' gradients
+    #: combined, their global norm and the clip scale), ``train.update``
+    #: (its second: the combine again, the clip and AdamW) and
+    #: ``train.refresh`` (the copies of the weights and the mark
     #: that orders later chunks behind them), which join it once they have
     #: run (``HeteroTrainer.resolve_phases``); empty with telemetry off
     phases: Dict[str, Dict[str, float]] = field(default_factory=dict)
@@ -323,35 +327,23 @@ class HeteroTrainer:
             marks = PhaseMarks(torch.cuda.current_stream(self.device)
                                if self.device.type == "cuda" else None)
             marks.mark("train.combine")
-        # example-weighted gradient combine across groups, in fp32 on the
-        # parameters' device, one leaf at a time; each chunk's leaf is
-        # dropped once added. A CUDA leaf was made on its chunk's stream
-        # and is read on this one: record_stream keeps its memory from that
-        # stream's next allocations until the read is done
+        # the chunks' gradients as they came, combined sum g n / sum n in
+        # fp32 inside the update's two passes (a CPU group's moved to the
+        # parameters' device first): the first, the global norm and the
+        # clip scale, is this phase; the second, AdamW, the update's
         results = [r for r in (rec.meta.get("result") for rec in res.records)
                    if r]
         total_loss = sum(r["loss_n"] for r in results)
         total_n = sum(r["n"] for r in results)
         assert total_n > 0, "no gradients collected"
-        chunk_leaves = [tree_leaves(r.pop("grads")) for r in results]
-        total = []
-        for i in range(len(chunk_leaves[0])):
-            acc = None
-            for r, leaves in zip(results, chunk_leaves):
-                term = leaves[i].to(self.device).float() * r["n"]
-                if leaves[i].is_cuda:
-                    leaves[i].record_stream(
-                        torch.cuda.current_stream(leaves[i].device))
-                leaves[i] = None
-                acc = term if acc is None else acc.add_(term)
-            total.append(acc.div_(total_n))
-        del chunk_leaves
-        total_g = tree_unflatten(self.params, total)
+        grads = ChunkGrads([r.pop("grads") for r in results],
+                           [r["n"] for r in results], self.device)
+        grads.norm(self.oc)
         if marks is not None:
             marks.mark("train.update")
         self.params, self.opt, _ = adamw_update(
-            self.oc, self.params, total_g, self.opt)
-        del total_g, total
+            self.oc, self.params, grads, self.opt)
+        del grads
         if marks is not None:
             marks.mark("train.refresh")
         self._refresh_copies()

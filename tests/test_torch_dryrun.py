@@ -30,6 +30,7 @@ from repro.models import model as JM
 from repro.sharding.rules import ShardingRules as JaxRules
 from repro.train import optimizer as JO
 from repro_torch.configs.registry import get_reduced_config
+from repro_torch.kernels import adamw_step as AS
 from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
@@ -143,6 +144,42 @@ def test_ssm_state_step_meta_branch():
         "bytes": cost.ssm_state_step_bytes(b, nh, P, g, N), "calls": 1}
     assert got["ssm_state_step"]["bytes"] > 8 * b * nh * P * N
     assert got["ssm_state_step"]["flops"] > 2 * 2 * b * nh * P * N
+
+
+def test_adamw_step_meta_branch():
+    """The AdamW step's two passes on meta leaves of 3 chunks, stablelm's
+    embedding in bf16 and an fp32 leaf: no launch, the norm and the scale
+    0-d fp32 meta tensors, and each pass charged once, its bytes each
+    chunk's gradient read in its dtype (and m, v, master and the parameter
+    in the update); at 4 chunks 42 bytes a bf16 parameter."""
+    k, counts = 3, [1.0, 2.0, 3.0]
+    shapes = [((100352, 2048), torch.bfloat16), ((64,), torch.float32)]
+    grads = [[_meta(*s, dtype=dt) for _ in range(k)] for s, dt in shapes]
+
+    def fp32():
+        return [_meta(*s, dtype=torch.float32) for s, _ in shapes]
+
+    before = AS.launches
+    with cost.recording() as got:
+        gn = AS.grad_norm(grads, counts, 1.0)
+        AS.adamw_step(grads, counts, gn, fp32(), fp32(), fp32(),
+                      [_meta(*s, dtype=dt) for s, dt in shapes],
+                      AS.Hyper(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
+                               weight_decay=0.1, bc1=0.1, bc2=0.05))
+    assert AS.launches == before
+    for t in (gn.norm, gn.scale):
+        assert t.is_meta and t.shape == () and t.dtype == torch.float32
+    big, small = 100352 * 2048, 64
+    assert got["adamw_step"] == {
+        "flops": cost.adamw_norm_flops(big + small, k)
+        + cost.adamw_update_flops(big + small, k),
+        "bytes": cost.adamw_norm_bytes(big, 2, k)
+        + cost.adamw_update_bytes(big, 2, k)
+        + cost.adamw_norm_bytes(small, 4, k)
+        + cost.adamw_update_bytes(small, 4, k),
+        "calls": 2}
+    assert cost.adamw_norm_bytes(big, 2, 4) \
+        + cost.adamw_update_bytes(big, 2, 4) == 42 * big
 
 
 def test_attention_backward_charge_is_the_blocked_loops():
@@ -280,6 +317,14 @@ CELLS = [("stablelm-1.6b", "train_4k", "single"),
          ("yi-6b", "decode_32k", "multi")]
 
 
+#: a cell's collectives where they are pinned: stablelm-1.6b's training
+#: step issues in its update the gradients' reductions to the shards of
+#: the optimizer state and the global norm's sum over the shards, as the
+#: eager update did before the AdamW kernel (whose meta branch runs it)
+COLLECTIVES = {("stablelm-1.6b", "train_4k", "single"): {
+    "all-gather": 576, "all-reduce": 113, "reduce-scatter": 208}}
+
+
 @pytest.mark.parametrize("arch,shape,mesh_kind", CELLS)
 def test_cell_traces_at_full_width(arch, shape, mesh_kind):
     res = dryrun.run_cell(arch, shape, mesh_kind, save_hlo=False)
@@ -300,6 +345,9 @@ def test_cell_traces_at_full_width(arch, shape, mesh_kind):
         "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
         "collective-permute"}
     assert sum(res["collective_op_counts"].values()) > 0
+    if (arch, shape, mesh_kind) in COLLECTIVES:
+        assert res["collective_op_counts"] == \
+            COLLECTIVES[arch, shape, mesh_kind]
     assert json.loads(json.dumps(res)) == res
 
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import adamw_step as AS
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_attention_bwd as FB
 from repro_torch.kernels import flash_decode as FD
@@ -743,7 +744,8 @@ def test_trainer_steps_without_a_host_sync_repeat_the_synchronised_bits():
     chunks on their executor's stream: only an event orders them. Three
     CUDA-only steps of full-width stablelm-1.6b cut to 2 layers, with no
     synchronise between them, give the same loss and weights, bit for bit,
-    as the same steps with a synchronise after each."""
+    as the same steps with a synchronise after each, each step's update
+    in the AdamW kernel's three launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.types import DeviceKind
     from repro_torch.models import model as M
@@ -763,12 +765,13 @@ def test_trainer_steps_without_a_host_sync_repeat_the_synchronised_bits():
             seq_len=256, global_batch=8,
             oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3),
             repeat_data=True, params=tree_map(torch.clone, params))
-        losses = []
+        losses, launches = [], AS.launches
         for _ in range(3):
             losses.append(tr.train_step().loss)
             if sync:
                 torch.cuda.synchronize()
         torch.cuda.synchronize()
+        assert AS.launches == launches + 3 * 3
         return losses, tree_leaves(tr.params)
 
     loss_sync, w_sync = run(True)
@@ -1025,6 +1028,190 @@ def test_a_step_after_an_unsynchronised_one_leaves_its_update_out_of_grad():
     grad, calm_grad = (r.phases["train.grad"]["device_s"]
                        for r in (second, calm))
     assert grad < calm_grad + 0.25 * slept, (grad, calm_grad, slept)
+
+
+#: stablelm-1.6b's largest leaf (an MLP matrix of every layer: layers x
+#: d_model x d_ff) and ragged lengths: one element, a part of one thread's
+#: 8, and a leaf whose last tile and last thread are both cut short
+ADAMW_LEAVES = [(24, 2048, 5632), (1,), (7,), (1_000_003,)]
+ADAMW_HP = AS.Hyper(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
+                    weight_decay=0.1, bc1=float(1 - torch.tensor(0.9) ** 3),
+                    bc2=float(1 - torch.tensor(0.95) ** 3))
+
+
+def _adamw_case(dev, k, dtype, seed):
+    """k chunks' gradients of ``ADAMW_LEAVES`` with unequal example
+    counts, and a state three steps old: (grads, counts, [m, v, master],
+    params). The leaves are ``dtype``; in a bf16 tree the 7-element leaf
+    is fp32, as the SSM's A_log is among bf16 weights."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(shape, scale, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    dtypes = [dtype, dtype, torch.float32, dtype]
+    params = [rnd(s, 0.02, dt) for s, dt in zip(ADAMW_LEAVES, dtypes)]
+    grads = [[rnd(s, 1e-3, dt) for _ in range(k)]
+             for s, dt in zip(ADAMW_LEAVES, dtypes)]
+    counts = [8.0, 5.0, 8.0, 3.0, 7.0][:k]
+    m = [rnd(s, 1e-3) for s in ADAMW_LEAVES]
+    v = [rnd(s, 1e-3).square() for s in ADAMW_LEAVES]
+    master = [p.float() + rnd(p.shape, 1e-5) for p in params]
+    return grads, counts, [m, v, master], params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_adamw_step_kernel_matches_plain(k, dtype):
+    """The two passes over stablelm-1.6b's largest leaf and ragged ones,
+    k chunks with unequal counts, the clip at work: three launches; the
+    norm within 1e-5 of ``global_norm`` of the plain combine (the kernel
+    sums the squares in fp64, torch.sum in fp32 in another order); m, v,
+    master and the parameters bit-equal to the plain chain's given the
+    kernel's scale (the kernel rounds every product and sum where it
+    does); every tensor updated at its address."""
+    from repro_torch.train.optimizer import global_norm
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    grads, counts, state, params = _adamw_case(dev, k, dtype, seed=k)
+    want_state = [[t.clone() for t in ts] for ts in state]
+    want_params = [p.clone() for p in params]
+    tensors = [*sum(state, []), *params]
+    ptrs = [t.data_ptr() for t in tensors]
+    start = state[2][0].clone()
+    launches = AS.launches
+    gn = AS.grad_norm(grads, counts, 1.0)
+    AS.adamw_step(grads, counts, gn, *state, params, ADAMW_HP)
+    torch.cuda.synchronize()
+    assert AS.launches == launches + 3
+    assert [t.data_ptr() for t in tensors] == ptrs
+    combined = AS.combine_plain(grads, counts)
+    norm = global_norm(dict(enumerate(combined)))
+    assert float(gn.norm) > 1.0 and 0 < float(gn.scale) < 1
+    assert abs(float(gn.norm) - float(norm)) <= 1e-5 * float(norm)
+    del combined
+    AS.adamw_step_plain(grads, counts, AS.GradNorm(gn.norm, gn.scale),
+                        *want_state, want_params, ADAMW_HP)
+    for name, got, want in zip(("m", "v", "master", "params"),
+                               [*state, params], [*want_state, want_params]):
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), \
+                (name, i, (a.float() - b.float()).abs().max().item())
+    assert not torch.equal(state[2][0], start)
+
+
+@pytest.mark.gpu
+def test_adamw_step_repeats_its_bits():
+    """Two calls from the same start at the trainer's 4 bf16 chunks: the
+    norm, the scale, m, v, master and the parameters bit-equal (each
+    block's partial and their sum in a fixed order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    grads, counts, state, params = _adamw_case(dev, 4, torch.bfloat16, 11)
+    runs = []
+    for _ in range(2):
+        st = [[t.clone() for t in ts] for ts in state]
+        ps = [p.clone() for p in params]
+        gn = AS.grad_norm(grads, counts, 1.0)
+        AS.adamw_step(grads, counts, gn, *st, ps, ADAMW_HP)
+        runs.append([gn.norm.clone(), gn.scale.clone(), *sum(st, []), *ps])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["float16", "unaligned", "dtypes differ"])
+def test_adamw_step_refuses_on_the_card(what):
+    """On CUDA tensors the wrappers raise on a dtype the kernel does not
+    take, a leaf that does not start on 16 bytes, and a parameter of
+    another dtype than its gradients: there is no fallback, and nothing
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    n = 100
+    dtype = torch.float16 if what == "float16" else torch.bfloat16
+    grads = [[torch.ones(n + 1, dtype=dtype, device=dev)[1:]
+              if what == "unaligned" else
+              torch.ones(n, dtype=dtype, device=dev)]]
+    state = [[torch.zeros(n, device=dev)] for _ in range(3)]
+    param = torch.zeros(n, device=dev, dtype=torch.float32
+                        if what == "dtypes differ" else dtype)
+    launches = AS.launches
+    with pytest.raises((ValueError, TypeError)):
+        gn = AS.grad_norm(grads, [1.0], 1.0)
+        AS.adamw_step(grads, [1.0], gn, *state, [param], ADAMW_HP)
+    torch.cuda.synchronize()
+    assert AS.launches == launches + (2 if what == "dtypes differ" else 0)
+
+
+@pytest.mark.gpu
+def test_adamw_update_takes_gradients_that_are_views():
+    """Autograd may hand back a gradient that is a view: transposed, or
+    at an offset into a larger buffer. ``ChunkGrads`` copies such a CUDA
+    leaf into a contiguous, 16-byte aligned one, so ``adamw_update`` on 3
+    chunks of such views gives the bits it gives on contiguous copies."""
+    from repro_torch.train import optimizer as O
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = {"a": torch.randn(64, 48, generator=gen, device=dev).bfloat16(),
+              "b": torch.randn(100, generator=gen, device=dev)}
+
+    def views():
+        return {"a": torch.randn(48, 64, generator=gen,
+                                 device=dev).bfloat16().t(),
+                "b": torch.randn(101, generator=gen, device=dev)[1:]}
+
+    trees = [views() for _ in range(3)]
+    assert not trees[0]["a"].is_contiguous()
+    assert trees[0]["b"].data_ptr() % 16
+    dense = [O.tree_map(lambda g: g.contiguous().clone(), t) for t in trees]
+    runs = []
+    for chunks in (trees, dense):
+        p = O.tree_map(torch.clone, params)
+        opt = O.init_opt_state(p)
+        _, _, metrics = O.adamw_update(
+            O.OptConfig(lr=1e-3, warmup_steps=1), p,
+            O.ChunkGrads(chunks, [3.0, 5.0, 8.0]), opt)
+        runs.append([metrics["grad_norm"], *O.tree_leaves(p),
+                     *(t for k in ("m", "v", "master")
+                       for t in O.tree_leaves(opt[k]))])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_chunk_grads_hold_another_streams_leaf_until_it_is_read():
+    """A chunk's gradient is made on its executor's stream and read on
+    the trainer's. ``ChunkGrads`` copies a view there and drops it; the
+    view's block must not go back to the executor's stream before the
+    copy has run. The trainer's stream is held back (``_sleep``) while the
+    executor's stream allocates a buffer of the same size and writes it:
+    the copy still reads the gradient."""
+    from repro_torch.train import optimizer as O
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    side, n = torch.cuda.Stream(dev), 1 << 20
+    with torch.cuda.stream(side):
+        buf = torch.arange(n + 1, dtype=torch.float32, device=dev)
+        tree = {"b": buf[1:]}           # 4 bytes into its buffer: a view
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda._sleep(200_000_000)      # ~0.1 s at the card's clock
+    grads = O.ChunkGrads([tree], [1.0])
+    assert grads.leaves[0][0].data_ptr() != buf.data_ptr() + 4
+    del tree, buf
+    with torch.cuda.stream(side):
+        torch.full((n + 1,), -1.0, device=dev)
+    torch.cuda.synchronize()
+    assert torch.equal(grads.leaves[0][0].cpu(),
+                       torch.arange(1, n + 1, dtype=torch.float32))
 
 
 def _leaves(tree):

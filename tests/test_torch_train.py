@@ -269,6 +269,88 @@ def test_adamw_update_matches_jax():
                 err_msg=f"{name}/{key}")
 
 
+def _combine_then_update(oc, params, trees, counts, opt):
+    """The trainer's combine and ``adamw_update`` as the port ran them
+    before the update took the chunks' gradients itself: each leaf summed
+    in fp32 in chunk order and divided by the examples, then the global
+    norm, the clip and AdamW, leaf by leaf."""
+    total_n = sum(counts)
+    chunk_leaves = [topt.tree_leaves(t) for t in trees]
+    grads = []
+    for i in range(len(chunk_leaves[0])):
+        acc = None
+        for n, leaves in zip(counts, chunk_leaves):
+            term = leaves[i].float() * n
+            acc = term if acc is None else acc.add_(term)
+        grads.append(acc.div_(total_n))
+    step = opt["step"] + 1
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    stepf = step.to(torch.float32)
+    bc1 = float(1 - torch.tensor(oc.beta1, dtype=torch.float32) ** stepf)
+    bc2 = float(1 - torch.tensor(oc.beta2, dtype=torch.float32) ** stepf)
+    lr = float(topt.lr_at(oc, step))
+    b1, b2 = oc.beta1, oc.beta2
+    for g, m, v, master, p in zip(grads, topt.tree_leaves(opt["m"]),
+                                  topt.tree_leaves(opt["v"]),
+                                  topt.tree_leaves(opt["master"]),
+                                  topt.tree_leaves(params)):
+        g = g.float() * scale
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(torch.square(g) * (1 - b2))
+        update = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps) \
+            + oc.weight_decay * master
+        master.sub_(lr * update)
+        p.copy_(master)
+    opt["step"] = step
+    return gnorm
+
+
+@pytest.mark.parametrize("clip", ["active", "inactive"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_adamw_update_of_chunk_grads_repeats_the_combine_then_update(
+        k, dtype, clip):
+    """``adamw_update`` on a ``ChunkGrads`` of k chunks with unequal
+    example counts, on the CPU (the plain version of its two passes): the
+    parameters, master, m, v and the norm bit for bit those of the
+    trainer's combine then the update as they ran before, in bf16 and fp32
+    leaves, with the clip at work or not."""
+    torch.manual_seed(k)
+    params = _tree_of({"a": (33, 7), "b": {"c": (5,), "d": (3, 4, 2)}},
+                      dtype)
+    counts = [3.0, 8.0, 1.0, 6.0][:k]
+    trees = [topt.tree_map(lambda p: (torch.randn(p.shape) * 0.4).to(dtype),
+                           params) for _ in range(k)]
+    oc = topt.OptConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                        clip_norm=1.0 if clip == "active" else 1e6)
+    opt = topt.init_opt_state(params)
+    opt["m"] = topt.tree_map(lambda m: torch.randn(m.shape) * 0.1, opt["m"])
+    opt["v"] = topt.tree_map(lambda v: torch.rand(v.shape) * 0.1, opt["v"])
+    opt["step"] = torch.tensor(3, dtype=torch.int32)
+    opts = [{k_: topt.tree_map(torch.clone, v) if k_ != "step" else v
+             for k_, v in opt.items()} for _ in range(2)]
+    got_p, want_p = (topt.tree_map(torch.clone, params) for _ in range(2))
+    _, got_opt, metrics = topt.adamw_update(
+        oc, got_p, topt.ChunkGrads(trees, counts), opts[0])
+    want_norm = _combine_then_update(oc, want_p, trees, counts, opts[1])
+    assert (float(want_norm) > oc.clip_norm) == (clip == "active")
+    assert torch.equal(metrics["grad_norm"], want_norm)
+    assert int(got_opt["step"]) == 4
+    for got, want in ((got_p, want_p), (got_opt["master"], opts[1]["master"]),
+                      (got_opt["m"], opts[1]["m"]),
+                      (got_opt["v"], opts[1]["v"])):
+        for a, b in zip(topt.tree_leaves(got), topt.tree_leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _tree_of(shapes, dtype):
+    if isinstance(shapes, dict):
+        return {k: _tree_of(v, dtype) for k, v in shapes.items()}
+    return torch.randn(shapes).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # the model's training forward, grad_step, the trainer
 # ---------------------------------------------------------------------------

@@ -343,20 +343,25 @@ def test_adamw_update_and_refresh_keep_every_tensor_address():
 
 def test_a_steps_gradients_are_freed_without_the_garbage_collector(
         monkeypatch):
-    """Each chunk's gradients and the combined fp32 gradients are freed
-    by the end of the step, with the garbage collector off: a graphed step
-    makes few Python objects, so the collector seldom runs, and gradients
-    that only it frees (a reference cycle's) pile up on the card, a
-    combined gradient (6.6 GB at stablelm-1.6b) a step (ROADMAP C14)."""
+    """Each chunk's gradients, which the update takes as they came
+    (``ChunkGrads``), and the plain version's combined fp32 gradients are
+    freed by the end of the step, with the garbage collector off: a graphed
+    step makes few Python objects, so the collector seldom runs, and
+    gradients that only it frees (a reference cycle's) pile up on the
+    card, a chunk's gradients (3.3 GB at stablelm-1.6b) a step (ROADMAP
+    C14)."""
     tr = _trainer()
     tr.train_step()                 # the first step's lazy imports
-    seen = []
+    seen, taken = [], []
     real_update, real_step = trainer_mod.adamw_update, \
         trainer_mod.chunk_grad_step
 
     def update(oc, params, grads, opt):
-        seen.extend(weakref.ref(t) for t in tree_leaves(grads))
-        return real_update(oc, params, grads, opt)
+        taken.extend(weakref.ref(t) for leaves in grads.leaves
+                     for t in leaves)
+        out = real_update(oc, params, grads, opt)
+        seen.extend(weakref.ref(t) for t in grads.norm(oc).combined)
+        return out
 
     def step(cfg, params, batch):
         out = real_step(cfg, params, batch)
@@ -370,10 +375,12 @@ def test_a_steps_gradients_are_freed_without_the_garbage_collector(
     gc.disable()
     try:
         tr.train_step()
-        alive = sum(r() is not None for r in seen)
+        alive = sum(r() is not None for r in seen + taken)
     finally:
         gc.enable()
-    assert len(seen) == 3 * len(tree_leaves(tr.params)) and alive == 0
+    n = len(tree_leaves(tr.params))
+    # the update took every chunk's leaves: the two chunks' of the step
+    assert len(taken) == 2 * n and len(seen) == 3 * n and alive == 0
 
 
 def test_load_state_drops_every_graph(recording, monkeypatch):
